@@ -5,31 +5,47 @@
 
 Phases, each of which raises on failure:
   1. device: a CUDA card is required; prints its name and power limit;
-  2. build: compiles the packed rasteriser kernel from `straps_tpu_torch/csrc`;
-  3. kernel vs plain: the kernel's keys against its plain PyTorch version on
-     the card (two triangles: part map exact; the synthetic SMPL mesh at
-     256x256, B=8 and B=32, and a ragged 250x250: part mismatch < 0.002 and
-     depth within 8 ulps where both cover);
-  4. slice: the evaluation CLI on 64 synthetic samples at full width
-     (256x256 proxies, ResNet-18 + IEF, the 13776-face mesh, batch 32,
-     bfloat16 encoder, the IEF head set to the T-pose so the predicted
-     body fills the crop); metrics finite, IoU in (0.2, 1], and the kernel's
-     launch count shows every render went through it; then the same
-     evaluation at 64x64 in float32 on the card and on the CPU, which must
-     agree;
-  5. times: the kernel at B=64, 256x256, culled, beside its bound and its
-     plain version; the evaluation's wall time; proxy -> SMPL inferences/s
-     at batch 256.
+  2. build: compiles both rasteriser kernels from `straps_tpu_torch/csrc`,
+     one nvcc each, started together;
+  3. kernels vs plain: each kernel against its plain PyTorch version on the
+     card.  Packed keys: two triangles, part map exact; the synthetic SMPL
+     mesh at 256x256, B=8 and B=32, and a ragged 250x250, part mismatch
+     < 0.002 and depth within 8 ulps where both cover.  Face ids: the same
+     scenes, triangles exact, SMPL face-id mismatch < 0.002 and depth rtol
+     1e-5 where both cover;
+  4. slices, each with every kernel's launch count set to 0 just before it
+     and read just after:
+     - the evaluation CLI on 64 synthetic samples at full width (256x256
+       proxies, ResNet-18 + IEF, the 13776-face mesh, batch 32, bfloat16
+       encoder, the IEF head set to the T-pose so the predicted body fills
+       the crop); metrics finite, IoU in (0.2, 1], and the packed kernel's
+       launch count shows every render went through it; then the same
+       evaluation at 64x64 in float32 on the card and on the CPU, which
+       must agree;
+     - the predict CLI over 64 cached proxies (512x512 silhouettes and 17
+       joints of synthetic bodies) with the same checkpoint, at 256x256:
+       npy outputs finite, every render has foreground, and exactly 2
+       face-id kernel launches (all rend renders, all reposed renders);
+       then the same predict at 64x64 in float32 on the card and on the
+       CPU, which must agree;
+  5. times: each kernel at B=64, 256x256 (packed: culled eval bodies;
+     face-id: unculled, the predict renders' own bodies), beside its bound
+     and its plain version; the evaluation's and the predict's wall time;
+     proxy -> SMPL inferences/s at batch 256.
 The line before the last is the `kernels` JSON, the last the result JSON.
 Exits non-zero without a card, and outside a checkout of the repository.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -112,6 +128,33 @@ def compare_kernel(name, flat, bounds, attr, img_h, img_w, exact=False):
     return err
 
 
+def compare_faceid(name, flat, bounds, img_h, img_w, exact=False):
+    """Face-id kernel vs its plain version on the same card inputs; returns
+    the max absolute depth error where both cover."""
+    from straps_tpu_torch.render import cuda_raster as CR
+
+    fid_k, z_k = CR.faceid_raster_kernel(flat, bounds, img_h, img_w)
+    torch.cuda.synchronize()
+    fid_p, z_p = CR.rasterize_faceid_reference(flat, bounds, img_h, img_w)
+    mismatch = (fid_k != fid_p).float().mean().item()
+    both = (fid_k >= 0) & (fid_p >= 0)
+    rel = ((z_k - z_p).abs() / z_p.abs())[both]
+    max_rel = float(rel.max().item()) if rel.numel() else 0.0
+    err = float((z_k - z_p).abs()[both].max().item()) if rel.numel() else 0.0
+    bg_ok = bool(((z_k == CR.FACEID_BG_DEPTH) == (fid_k < 0)).all().item())
+    fg = (fid_p >= 0).float().mean().item()
+    identical = torch.equal(fid_k, fid_p) and torch.equal(z_k, z_p)
+    print(f"face-id kernel vs plain [{name}]: face-id mismatch {mismatch} (bound "
+          f"{'0' if exact else '0.002'}), depth max rel {max_rel} / {err} abs (bound "
+          f"{'0' if exact else '1e-5'}), foreground {fg:.4f}, background depth 3.4e38 "
+          f"{bg_ok}, outputs identical {identical}")
+    if fg <= 0.0 or not bg_ok:
+        raise AssertionError(f"{name}: empty render or a wrong background depth")
+    if (exact and not identical) or mismatch >= 0.002 or max_rel > 1e-5:
+        raise AssertionError(f"{name}: face-id kernel disagrees with its plain version")
+    return err
+
+
 def covered_pixel_faces(flat, bounds, img_h, img_w):
     """Pixel-face pairs where the pixel centre lies inside the face: the
     pairs whose depth plane the kernel evaluates."""
@@ -135,18 +178,19 @@ def covered_pixel_faces(flat, bounds, img_h, img_w):
     return total
 
 
-def kernel_bound_ms(flat, bounds, attr, img_h, img_w):
-    """Least time for the kernel's work on these inputs: the larger of the
-    bytes (inputs read once, output written once) over HBM bandwidth and
-    the FP32 operations over the FP32 peak.  The operations are the three
-    edge planes of every pixel-face pair in the (8-row strip, chunk) pairs
-    whose row band overlaps the strip, and the depth plane of every pair
-    where the pixel is covered."""
+def kernel_bound_ms(flat, bounds, img_h, img_w, other_in_bytes, out_bytes_per_pixel):
+    """Least time for a rasteriser kernel's work on these inputs: the
+    larger of the bytes (inputs read once: planes, bounds and
+    `other_in_bytes`; outputs written once, `out_bytes_per_pixel`) over HBM
+    bandwidth and the FP32 operations over the FP32 peak.  The operations
+    are the three edge planes of every pixel-face pair in the (8-row strip,
+    chunk) pairs whose row band overlaps the strip, and the depth plane of
+    every pair where the pixel is covered."""
     from straps_tpu_torch.render import cuda_raster as CR
 
     B = flat.shape[0]
-    nbytes = (flat.numel() * 4 + bounds.numel() * 4 + attr.numel() * 4
-              + B * img_h * img_w * 4)
+    nbytes = (flat.numel() * 4 + bounds.numel() * 4 + other_in_bytes
+              + B * img_h * img_w * out_bytes_per_pixel)
     strip0 = torch.arange(0, img_h, CR.ROWS_PER_TILE, device=bounds.device)
     rows = torch.clamp(img_h - strip0, max=CR.ROWS_PER_TILE)           # (S,)
     lo, hi = bounds[..., 0, None], bounds[..., 1, None]                 # (B, C, 1)
@@ -162,13 +206,15 @@ def kernel_bound_ms(flat, bounds, attr, img_h, img_w):
     return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
 
 
-def write_t_pose_checkpoint(path, assets):
+def write_t_pose_checkpoint(path, assets, fc3_weight_scale=0.0):
     """A reference-format `.tar` of the seeded random regressor whose IEF
-    head returns the mean shape in the T-pose at camera scale 0.9 (`fc3`
-    weight 0, bias set): a body that fills the crop, so the silhouette IoU
-    compares two non-empty renders.  The synthetic fixture's mean pose
-    (1, 0, 0, 0, 1, 0) is degenerate under `rot6d_to_rotmat`'s (3, 2)
-    reading; the identity is (1, 0, 0, 1, 0, 0)."""
+    head returns, near the mean shape in the T-pose at camera scale 0.9, a
+    body that fills the crop (`fc3` bias set, its weight scaled by
+    `fc3_weight_scale`: 0 gives the same body for every input, a small
+    scale bodies that vary with it), so the silhouette IoU compares two
+    non-empty renders.  The synthetic fixture's mean pose (1, 0, 0, 0, 1, 0)
+    is degenerate under `rot6d_to_rotmat`'s (3, 2) reading; the identity is
+    (1, 0, 0, 1, 0, 0)."""
     from straps_tpu_torch.config import PredictConfig
     from straps_tpu_torch.predict.pipeline import load_regressor_variables
 
@@ -176,10 +222,53 @@ def write_t_pose_checkpoint(path, assets):
     ief = model.ief_module
     ident = torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 0.0]).repeat(24)
     with torch.no_grad():
-        ief.fc3.weight.zero_()
+        ief.fc3.weight.mul_(fc3_weight_scale)
         ief.fc3.bias.zero_()
         ief.fc3.bias[3:147] = (ident - ief.initial_estimate[3:147]) / ief.iterations
     torch.save({"best_model_state_dict": model.state_dict()}, path)
+
+
+def vis_faceid_inputs(assets, verts, cam_wp, img_wh):
+    """The face-id kernel's inputs for `render_body_vis_batch` of these
+    bodies (lit, unrotated): planes and unculled row bounds."""
+    from straps_tpu_torch.render import cuda_raster as CR
+    from straps_tpu_torch.render import raster as R
+    from straps_tpu_torch.render.vis import vis_camera
+
+    dev = assets.device
+    cam_t, K = vis_camera(torch.as_tensor(cam_wp, device=dev), img_wh)
+    screen, z = R.project_to_screen(torch.as_tensor(verts, device=dev), cam_t, K)
+    planes = R.prepare_face_planes(screen, z, assets.faces)
+    bounds = R.face_chunk_row_bounds(screen, assets.faces, CR.FACE_CHUNK, img_wh)
+    return CR.flatten_planes(planes), bounds.contiguous()
+
+
+def decode_png(path):
+    """Pixels of a PNG written by `straps_tpu_torch.utils.png` (8-bit,
+    filter type 0 on every row) -> uint8 (H, W, channels)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            header = body
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = int.from_bytes(header[0:4], "big"), int.from_bytes(header[4:8], "big")
+    channels = {0: 1, 2: 3, 6: 4}[header[9]]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * channels)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: unexpected PNG row filter")
+    return rows[:, 1:].reshape(h, w, channels)
+
+
+def reset_launches():
+    from straps_tpu_torch.render import cuda_raster as CR
+    for k in CR.KERNELS:
+        k.launches = 0
 
 
 def write_eval_npz(path, n, seed):
@@ -189,30 +278,25 @@ def write_eval_npz(path, n, seed):
              genders=np.asarray(["n"] * n))
 
 
-def profile_eval(card, cfg, n, batch, top=10):
-    """Warm evaluation wall time, then one profiled run: the device busy
-    share and the entries with the most device time."""
+def profile_run(card, label, n, unit, run, top=10):
+    """Wall time of `run()` twice (the second warm), then one profiled run:
+    the device busy share and the entries with the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from straps_tpu_torch.eval_harness.runner import run_evaluation
-
-    rng = np.random.RandomState(0)
-    data = {"poses": (rng.randn(n, 72) * 0.2).astype(np.float32),
-            "shapes": (rng.randn(n, 10) * 0.5).astype(np.float32)}
     walls = []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run_evaluation(data, cfg, batch_size=batch, device="cuda")
+        run()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    print(f"times on {card}: warm eval of {n} samples at 256x256, batch {batch}: "
-          f"{walls[-1] * 1e3:.2f} ms wall ({n / walls[-1]:.2f} samples/s; "
-          f"first two runs {walls[0] * 1e3:.2f}, {walls[1] * 1e3:.2f} ms)")
+    print(f"times on {card}: warm {label}: {walls[-1] * 1e3:.2f} ms wall "
+          f"({n / walls[-1]:.2f} {unit}/s; first two runs {walls[0] * 1e3:.2f}, "
+          f"{walls[1] * 1e3:.2f} ms)")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_evaluation(data, cfg, batch_size=batch, device="cuda")
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -228,7 +312,7 @@ def profile_eval(card, cfg, n, batch, top=10):
     if busy_ms == 0:
         print("profile: the profiler saw no device time (not measured)")
         return
-    print(f"profile on {card}: eval {wall_ms:.2f} ms wall under the profiler, device "
+    print(f"profile on {card}: {label} {wall_ms:.2f} ms wall under the profiler, device "
           f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%")
     for e in events[:top]:
@@ -249,10 +333,12 @@ def main() -> int:
     import straps_tpu_torch
     if os.path.dirname(os.path.dirname(os.path.abspath(straps_tpu_torch.__file__))) != here:
         raise RuntimeError("chip_smoke.py must run from a checkout holding straps_tpu_torch/")
-    from straps_tpu_torch.cli import run_eval
+    from straps_tpu_torch.cli import run_eval, run_predict
     from straps_tpu_torch.config import PredictConfig
-    from straps_tpu_torch.eval_harness.runner import run_evaluation
-    from straps_tpu_torch.predict.pipeline import load_regressor_variables, make_predict_fn
+    from straps_tpu_torch.eval_harness.runner import run_evaluation, synthesise_proxy_inputs
+    from straps_tpu_torch.predict.pipeline import (
+        load_regressor_variables, make_predict_fn, predict_3d, save_proxies,
+    )
     from straps_tpu_torch.render import cuda_raster as CR
     from straps_tpu_torch.render import raster as R
     from straps_tpu_torch.smpl.assets import load_synthetic_assets
@@ -260,15 +346,18 @@ def main() -> int:
 
     dev = resolve_device("cuda")
 
-    # 2. Build.
+    # 2. Build: one nvcc per kernel source, all started together.
     t0 = time.perf_counter()
-    lib = CR.build_library()
-    CR.packed_raster_kernel.library()
-    print(f"build: {lib} in {time.perf_counter() - t0:.2f} s")
-    with open(lib + ".log") as f:
-        print(f.read().strip())
+    with ThreadPoolExecutor(len(CR.KERNELS)) as pool:
+        libs = list(pool.map(lambda k: CR.build_library(k.source), CR.KERNELS))
+    for kernel in CR.KERNELS:
+        kernel.function()
+    print(f"build: {', '.join(libs)} in {time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        with open(lib + ".log") as f:
+            print(f.read().strip())
 
-    # 3. Kernel vs plain on the card.
+    # 3. Kernels vs plain on the card.
     assets = load_synthetic_assets(device=dev)
     scr = torch.tensor([[8., 8.], [56., 8.], [8., 56.], [20., 20.], [44., 20.], [20., 44.]],
                        device=dev)
@@ -279,13 +368,20 @@ def main() -> int:
     tri_bounds = R.face_chunk_row_bounds(scr[None], tri, CR.FACE_CHUNK, 64)
     errs = [compare_kernel("two triangles 64x64", flat, tri_bounds, attr, 64, 64,
                            exact=True)]
+    faceid_errs = [compare_faceid("two triangles 64x64", flat, tri_bounds, 64, 64,
+                                  exact=True)]
     for B, wh, cull in ((8, 256, True), (32, 256, True), (8, 256, False), (8, 250, True)):
         errs.append(compare_kernel(f"SMPL B={B} {wh}x{wh} cull={cull}",
                                    *smpl_kernel_inputs(assets, wh, B, seed=B + wh, cull=cull),
                                    wh, wh))
+    for B, wh, cull in ((8, 256, False), (8, 256, True), (32, 256, False), (32, 256, True),
+                        (8, 250, False)):
+        flat, bounds, _ = smpl_kernel_inputs(assets, wh, B, seed=B + wh + 1, cull=cull)
+        faceid_errs.append(compare_faceid(f"SMPL B={B} {wh}x{wh} cull={cull}",
+                                          flat, bounds, wh, wh))
     max_abs_err = max(errs)
 
-    # 4. The slice: the evaluation CLI at full width.
+    # 4a. The evaluation slice: the evaluation CLI at full width.
     n, batch = 64, 32
     tmp = tempfile.TemporaryDirectory()
     ckpt = os.path.join(tmp.name, "straps_model_checkpoint.tar")
@@ -293,7 +389,7 @@ def main() -> int:
     data = os.path.join(tmp.name, "eval.npz")
     write_eval_npz(data, n, seed=0)
     torch.cuda.synchronize()
-    CR.packed_raster_kernel.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     final = run_eval.main(["--dataset", data, "--checkpoint", ckpt, "--img-wh", "256",
                            "--batch-size", str(batch), "--device", "cuda"])
@@ -328,14 +424,95 @@ def main() -> int:
     if worst > 1e-3 or d_iou > 2e-3 or not on_cpu["silhouette_ious"] > 0.2:
         raise AssertionError(f"card {on_card} vs CPU {on_cpu}")
 
+    # 4b. The predict slice: the predict CLI over 64 cached proxies at full
+    # width, renders included.
+    rng = np.random.RandomState(2)
+    sils, joints = synthesise_proxy_inputs((rng.randn(n, 72) * 0.2).astype(np.float32),
+                                           (rng.randn(n, 10) * 0.5).astype(np.float32),
+                                           assets, 512)
+    names = [f"img{i:03d}" for i in range(n)]
+    # A T-pose head whose last layer still reads the features, so that
+    # each image gets its own body.
+    ckpt_pred = os.path.join(tmp.name, "straps_model_checkpoint_pred.tar")
+    write_t_pose_checkpoint(ckpt_pred, assets, fc3_weight_scale=0.1)
+    proxy_dir = os.path.join(tmp.name, "proxies")
+    save_proxies(proxy_dir, names, sils, joints)
+    out_dir = os.path.join(tmp.name, "predict_256")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as cli_out:
+        pred = run_predict.main(["--input", proxy_dir, "--checkpoint", ckpt_pred,
+                                 "--out-dir", out_dir, "--device", "cuda"])
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    print("\n".join(cli_out.getvalue().splitlines()[:3]))
+    faceid_launches = CR.faceid_raster_kernel.launches
+    print(f"slice: predict of {n} cached proxies at 256x256, bf16 encoder, renders "
+          f"included: {predict_s:.3f} s wall ({n / predict_s:.2f} images/s), face-id "
+          f"kernel launches {faceid_launches} (rend 1 + reposed 1), packed kernel "
+          f"launches {CR.packed_raster_kernel.launches}")
+    for name in names:
+        for key in ("verts", "shape", "pose_rotmats", "cam_wp"):
+            if not np.isfinite(np.load(os.path.join(out_dir, f"{name}_{key}.npy"))).all():
+                raise AssertionError(f"non-finite {name}_{key}.npy")
+    fg_min = 1.0
+    for name in names:
+        for kind in ("rend", "reposed"):
+            img = decode_png(os.path.join(out_dir, "rend_vis", f"{kind}_{name}.png"))
+            if img.shape != (256, 256, 3):
+                raise AssertionError(f"{kind}_{name}.png: shape {img.shape}")
+            fg_min = min(fg_min, float((img != 255).any(axis=-1).mean()))
+        decode_png(os.path.join(out_dir, "proxy_vis", f"{name}.png"))
+    print(f"slice: least foreground share of a render {fg_min:.4f}")
+    if fg_min <= 0.0:
+        raise AssertionError("a render is empty")
+    if faceid_launches != 2:
+        raise AssertionError(f"predict renders: {faceid_launches} face-id kernel launches, want 2")
+
+    # The same predict, small and float32, on the card and on the CPU.
+    outs = {}
+    for device in ("cuda", "cpu"):
+        outs[device] = os.path.join(tmp.name, f"predict_64_{device}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            run_predict.main(["--input", proxy_dir, "--checkpoint", ckpt_pred, "--out-dir",
+                              outs[device], "--device", device, "img_wh=64",
+                              "model.compute_dtype=None"])
+    def npy(device, name, key):
+        return np.load(os.path.join(outs[device], f"{name}_{key}.npy"))
+
+    worst_npy = max(
+        np.abs(npy("cuda", name, key) - npy("cpu", name, key)).max()
+        / max(np.abs(npy("cpu", name, key)).max(), 1e-6)
+        for name in names for key in ("verts", "shape", "pose_rotmats", "cam_wp"))
+    moved = max(
+        float((decode_png(os.path.join(outs["cuda"], "rend_vis", f"{kind}_{name}.png"))
+               != decode_png(os.path.join(outs["cpu"], "rend_vis", f"{kind}_{name}.png"))
+               ).any(axis=-1).mean())
+        for name in names for kind in ("rend", "reposed"))
+    print(f"reference check, predict of {n} images 64x64 f32, card vs CPU: worst relative "
+          f"npy difference {worst_npy:.3e} (bound 1e-4), largest share of render pixels "
+          f"that differ {moved:.4f} (bound 0.002)")
+    if worst_npy > 1e-4 or moved >= 0.002:
+        raise AssertionError("predict on the card disagrees with the CPU")
+
     # 5. Times.
     flat, bounds, attr = smpl_kernel_inputs(assets, 256, 64, seed=5)
     kernel_ms = cuda_ms(lambda: CR.packed_raster_kernel(flat, bounds, attr, 256, 256), 50)
     plain_ms = cuda_ms(lambda: CR.rasterize_packed_reference(flat, bounds, attr, 256, 256), 3)
-    bound_ms, bound_by = kernel_bound_ms(flat, bounds, attr, 256, 256)
+    bound_ms, bound_by = kernel_bound_ms(flat, bounds, 256, 256, attr.numel() * 4, 4)
     print(f"times on {card}: packed raster kernel B=64 256x256 culled "
           f"{kernel_ms:.4f} ms (bound {bound_ms:.4f} ms by {bound_by}, "
           f"{100 * bound_ms / kernel_ms:.1f}% of it); plain version {plain_ms:.3f} ms")
+
+    flat, bounds = vis_faceid_inputs(assets, pred["verts"], pred["cam_wp"], 256)
+    faceid_ms = cuda_ms(lambda: CR.faceid_raster_kernel(flat, bounds, 256, 256), 50)
+    faceid_plain_ms = cuda_ms(lambda: CR.rasterize_faceid_reference(flat, bounds, 256, 256), 3)
+    faceid_bound_ms, faceid_bound_by = kernel_bound_ms(flat, bounds, 256, 256, 0, 8)
+    print(f"times on {card}: face-id raster kernel B=64 256x256 unculled (predict rend "
+          f"bodies) {faceid_ms:.4f} ms (bound {faceid_bound_ms:.4f} ms by {faceid_bound_by}, "
+          f"{100 * faceid_bound_ms / faceid_ms:.1f}% of it); plain version "
+          f"{faceid_plain_ms:.3f} ms")
 
     infer_batch = 256
     model, _ = load_regressor_variables(PredictConfig(), assets, device=dev)
@@ -345,7 +522,15 @@ def main() -> int:
     step_ms = cuda_ms(lambda: predict(proxy), 10)
     print(f"times on {card}: proxy -> SMPL at batch {infer_batch}, bf16 encoder: "
           f"{step_ms:.3f} ms/batch, {infer_batch / step_ms * 1e3:.1f} inferences/s")
-    profile_eval(card, PredictConfig(checkpoint=ckpt), n, batch)
+    rng = np.random.RandomState(0)
+    eval_data = {"poses": (rng.randn(n, 72) * 0.2).astype(np.float32),
+                 "shapes": (rng.randn(n, 10) * 0.5).astype(np.float32)}
+    profile_run(card, f"eval of {n} samples at 256x256, batch {batch}", n, "samples",
+                lambda: run_evaluation(eval_data, PredictConfig(checkpoint=ckpt),
+                                       batch_size=batch, device="cuda"))
+    predict_cfg = PredictConfig(input_dir=proxy_dir, checkpoint=ckpt_pred, out_dir=out_dir)
+    profile_run(card, f"predict of {n} cached proxies at 256x256, renders included", n,
+                "images", lambda: predict_3d(predict_cfg, device="cuda"))
     tmp.cleanup()
 
     print(json.dumps({"kernels": [{
@@ -354,7 +539,13 @@ def main() -> int:
         "replaces": "straps_tpu/render/pallas_raster.py:106",
         "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "raster_faceid", "route": "cuda",
+        "source": "straps_tpu_torch/csrc/raster_faceid.cu",
+        "replaces": "straps_tpu/render/pallas_raster.py:50",
+        "launches": faceid_launches, "max_abs_err": max(faceid_errs), "ms": faceid_ms,
+        "plain_ms": faceid_plain_ms, "bound_ms": faceid_bound_ms,
+        "bound_by": faceid_bound_by, "library_ms": None}]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,9 @@
-"""Configuration of the evaluation path: `ModelConfig`, `PredictConfig` and
-the 'dotted.key=value' CLI overrides.
+"""Configuration of the evaluation and predict paths: `ModelConfig`,
+`PredictConfig` and the 'dotted.key=value' CLI overrides.
 
 A copy of the inference part of `straps_tpu/config.py` (the training and
 augmentation configs wait for the training slice).  Fields of paths the port
-does not serve yet (the predict CLI's folders, the detector checkpoints and
-budgets) are left out.
+does not serve yet (the detector checkpoints and budgets) are left out.
 """
 
 import ast
@@ -25,10 +24,16 @@ class ModelConfig:
 
 @dataclass
 class PredictConfig:
+    input_dir: str = "demo"
     checkpoint: Optional[str] = None
+    # 'cached' reads `*_silhouette.npy` + `*_joints2D.npy`; the detector
+    # front ends 'pointrend' and 'densepose' are not ported yet.
+    silhouettes_from: str = "cached"
+    proxy_dir: Optional[str] = None    # dir of cached proxies (default input_dir)
     # 'bfloat16' casts the proxy before the encoder (binary channels stay
     # exact, gaussian heatmap channels round).  None keeps float32.
     proxy_input_dtype: Optional[str] = None
+    out_dir: str = "predict_out"
     img_wh: int = 256
     smpl_dir: Optional[str] = None
     # 'auto' resolves from the checkpoint: reference `.tar` checkpoints were

@@ -1,1 +1,1 @@
-"""Inference: proxy construction and the batched prediction rollout."""
+"""Inference: proxy construction, the batched prediction rollout, predict_3d."""

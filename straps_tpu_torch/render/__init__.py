@@ -1,1 +1,1 @@
-"""Mesh rasterisation: plane preparation, the packed CUDA rasteriser, renderer."""
+"""Mesh rasterisation: plane preparation, the CUDA rasterisers, renderer, vis."""

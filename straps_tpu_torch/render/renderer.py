@@ -1,15 +1,19 @@
-"""Batch renderer: vertices + camera -> body-part map or silhouette.
+"""Batch renderer: vertices + camera -> body-part map, silhouette, face-id
+map or flat-shaded RGB.
 
-Counterpart of `straps_tpu/render/renderer.py` (part-segmentation and
-silhouette modes).  The rasteriser follows the tensors' device: on CUDA the
-packed kernel, on the CPU its plain version (`rasterize_packed`).
+Counterpart of `straps_tpu/render/renderer.py`.  The rasterisers follow
+the tensors' device: on CUDA the kernels, on the CPU their plain versions
+(`rasterize_packed` for part maps and silhouettes, `rasterize_faceid` for
+face ids and RGB).
 """
 
 from typing import Optional, Tuple
 
 import torch
 
-from straps_tpu_torch.render.cuda_raster import FACE_CHUNK, rasterize_packed
+from straps_tpu_torch.render.cuda_raster import (
+    FACE_CHUNK, rasterize_faceid, rasterize_packed,
+)
 from straps_tpu_torch.render.raster import (
     backface_mask, face_chunk_row_bounds, kill_faces, prepare_face_planes,
     project_to_screen,
@@ -53,3 +57,32 @@ def render_silhouette(verts, cam_t, cam_K, faces, img_wh, cam_R=None,
     parts, depth = render_part_seg(verts, cam_t, cam_K, faces, ones, img_wh,
                                    cam_R=cam_R, cull_backfaces=cull_backfaces)
     return (parts > 0).to(torch.float32), depth
+
+
+@torch.no_grad()
+def render_face_ids(verts: torch.Tensor, cam_t: torch.Tensor,
+                    cam_K: torch.Tensor, faces: torch.Tensor, img_wh: int,
+                    cam_R: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Render a batch of meshes, unculled, to face-id maps (B, img_wh,
+    img_wh) int32 (-1 = background) and exact depth f32 (3.4e38 where
+    background)."""
+    screen, z = project_to_screen(verts, cam_t, cam_K, cam_R)
+    planes = prepare_face_planes(screen, z, faces)
+    bounds = face_chunk_row_bounds(screen, faces, FACE_CHUNK, img_wh)
+    return rasterize_faceid(planes, bounds, img_wh, img_wh)
+
+
+def render_rgb(verts: torch.Tensor, cam_t: torch.Tensor, cam_K: torch.Tensor,
+               faces: torch.Tensor, face_colors: torch.Tensor, img_wh: int,
+               cam_R: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat-shaded RGB render + depth.
+
+    Args:
+      face_colors: (F, 3) per-face RGB in [0, 1].
+    Returns:
+      rgb (B, H, W, 3) with background black, depth (B, H, W).
+    """
+    fid, depth = render_face_ids(verts, cam_t, cam_K, faces, img_wh, cam_R)
+    return face_colors[fid.clamp(min=0).long()] * (fid >= 0)[..., None], depth

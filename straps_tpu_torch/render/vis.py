@@ -1,0 +1,211 @@
+"""Visualisation renders (counterpart of part of `straps_tpu/render/vis.py`).
+
+The reference's pyrender scene is replaced by the face-id rasteriser plus
+a per-face lit colour: `render_body_vis` draws predicted bodies, lit
+(`style="lit"`) or body-part coloured (`style="parts"`), and `proxy_vis`
+the silhouette + summed heatmaps of a proxy.  Both write uint8 pixels; the
+files are PNGs from `utils/png.py`.  Batched over bodies on the tensors'
+device: one face-id rasterisation for a whole batch.
+
+Not ported yet: the matplotlib scatters (`scatter_vis`,
+`verts_over_image_vis`), compositing over an image of another size, and the
+detector-path overlays.
+"""
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from straps_tpu_torch.geometry.camera import (
+    get_intrinsics_matrix, weak_perspective_to_camera_translation,
+)
+from straps_tpu_torch.render.raster import face_ids_to_parts
+from straps_tpu_torch.render.renderer import render_face_ids
+from straps_tpu_torch.utils.png import write_png
+
+# Part colours (bg + 6 parts), RGB in [0,1].
+PART_COLORS = np.asarray([
+    [0.0, 0.0, 0.0], [0.9, 0.3, 0.3], [0.3, 0.5, 0.9], [0.9, 0.8, 0.3],
+    [0.4, 0.8, 0.4], [0.7, 0.4, 0.8], [0.8, 0.6, 0.45],
+], np.float32)
+
+# The reference's pyrender scene (`renderers/weak_perspective_pyrender_
+# renderer.py:50-95`): ambient light 0.3; two white point lights of
+# intensity 1.0 at (0, -1, 1) and (0, 1, 1) in the GL world frame (camera
+# pose = identity, mesh transformed by Rx(180deg)); a metallic-roughness
+# material with metallic 0.2, base colour (0.8, 0.3, 0.3) and roughness
+# 1.0.  pyrender's shader is the glTF 2.0 metallic-roughness BRDF with
+# inverse-square point lights and a 1/2.2 gamma on output.
+LIT_AMBIENT = 0.3
+LIT_LIGHT_POSITIONS = np.asarray([[0.0, -1.0, 1.0], [0.0, 1.0, 1.0]], np.float32)
+LIT_LIGHT_INTENSITY = 1.0
+LIT_BASE_COLOR = np.asarray([0.8, 0.3, 0.3], np.float32)
+LIT_METALLIC = 0.2
+LIT_ROUGHNESS = 1.0
+
+# matplotlib's 'gray' colormap as bytes: entry i of its 256-entry table.
+_GRAY_LEVELS = (np.linspace(0.0, 1.0, 256) * 255).astype(np.uint8)
+_FLIP_YZ = (1.0, -1.0, -1.0)
+
+
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1e-12)
+
+
+def lit_face_colors(verts: torch.Tensor, faces: torch.Tensor,
+                    base_color=LIT_BASE_COLOR) -> torch.Tensor:
+    """Per-face shaded RGB under the reference's two-point-light scene.
+
+    Args:
+      verts: (B, V, 3) model-space vertices; faces: (F, 3) int.
+    Returns:
+      (B, F, 3) in [0, 1], gamma-corrected: the glTF 2.0
+      metallic-roughness BRDF with the scene constants above, flat-shaded
+      per face (geometric normal, centroid as the fragment position).  The
+      reference renders the mesh after Rx(180deg), so the lighting frame is
+      (x, -y, -z) with the camera at the origin looking down -z.
+    """
+    dev = verts.device
+    v = verts.to(torch.float32) * torch.tensor(_FLIP_YZ, device=dev)
+    tri = v[:, faces.long()]                                    # (B, F, 3, 3)
+    n = _unit(torch.linalg.cross(tri[..., 1, :] - tri[..., 0, :],
+                                 tri[..., 2, :] - tri[..., 0, :]))
+    p = tri.mean(dim=-2)                                        # centroids
+    view = _unit(-p)
+    # Normals face the viewer: only front faces survive the depth test.
+    n = torch.where((n * view).sum(-1, keepdim=True) < 0.0, -n, n)
+
+    base = torch.as_tensor(np.asarray(base_color, np.float32), device=dev)
+    c_diff = base * (1.0 - 0.04) * (1.0 - LIT_METALLIC)
+    f0 = 0.04 * (1.0 - LIT_METALLIC) + base * LIT_METALLIC
+    alpha = LIT_ROUGHNESS ** 2
+    n_dot_v = (n * view).sum(-1, keepdim=True).clamp(1e-3, 1.0)
+
+    color = torch.full(tri.shape[:2] + (3,), LIT_AMBIENT, device=dev) * base
+    for light_pos in torch.as_tensor(LIT_LIGHT_POSITIONS, device=dev):
+        lvec = light_pos - p
+        dist = torch.linalg.vector_norm(lvec, dim=-1, keepdim=True)
+        ldir = lvec / (dist + 1e-12)
+        att = LIT_LIGHT_INTENSITY / torch.clamp(dist ** 2, min=1e-12)
+        n_dot_l = (n * ldir).sum(-1, keepdim=True).clamp(1e-3, 1.0)
+        half = _unit(ldir + view)
+        n_dot_h = (n * half).sum(-1, keepdim=True).clamp(0.0, 1.0)
+        v_dot_h = (view * half).sum(-1, keepdim=True).clamp(0.0, 1.0)
+        fresnel = f0 + (1.0 - f0) * (1.0 - v_dot_h) ** 5
+        ggx_d = alpha ** 2 / (np.pi * (n_dot_h ** 2 * (alpha ** 2 - 1.0) + 1.0) ** 2)
+        smith_vis = 0.5 / (
+            n_dot_l * torch.sqrt(n_dot_v ** 2 * (1.0 - alpha ** 2) + alpha ** 2)
+            + n_dot_v * torch.sqrt(n_dot_l ** 2 * (1.0 - alpha ** 2) + alpha ** 2))
+        diffuse = (1.0 - fresnel) * c_diff / np.pi
+        specular = fresnel * ggx_d * smith_vis
+        color = color + att * n_dot_l * (diffuse + specular)
+    return color.clamp(0.0, 1.0) ** (1.0 / 2.2)
+
+
+def shade_depth(depth: torch.Tensor, background: float = 1e30) -> torch.Tensor:
+    """Screen-space-normal lambertian shading of (B, H, W) depth maps ->
+    (B, H, W) in [0, 1], 0 where background."""
+    d = depth.to(torch.float32)
+    fg = d < background
+    dzdy, dzdx = torch.gradient(torch.where(fg, d, torch.nan), dim=(-2, -1))
+    n = torch.stack([-torch.nan_to_num(dzdx), -torch.nan_to_num(dzdy),
+                     torch.full_like(d, 0.02)], dim=-1)
+    n = n / (torch.linalg.vector_norm(n, dim=-1, keepdim=True) + 1e-9)
+    light = torch.tensor([0.3, -0.5, 0.8], dtype=torch.float64)
+    light = (light / torch.linalg.vector_norm(light)).to(torch.float32).to(d.device)
+    shade = (n @ light).clamp(0.0, 1.0) * 0.8 + 0.2
+    return torch.where(fg, shade, 0.0)
+
+
+def vis_camera(cam_wp: torch.Tensor, img_wh: int):
+    """(B, 3) weak-perspective cameras -> the vis renders' perspective
+    camera: translations (B, 3) and intrinsics (3, 3), at the reference
+    vis focal length of 5000 px at 512 px, scaled to `img_wh`."""
+    focal = 5000.0 * img_wh / 512.0
+    cam_t = weak_perspective_to_camera_translation(cam_wp.to(torch.float32), focal, img_wh)
+    return cam_t, torch.as_tensor(get_intrinsics_matrix(img_wh, img_wh, focal),
+                                  device=cam_wp.device)
+
+
+def render_body_vis_batch(verts: torch.Tensor, cam_wp: torch.Tensor, assets,
+                          img_wh: int = 512, image: Optional[torch.Tensor] = None,
+                          rotate_x180: bool = False, style: str = "lit"
+                          ) -> torch.Tensor:
+    """Shaded renders of a batch of bodies from predicted vertices and
+    weak-perspective cameras, in one face-id rasterisation.
+
+    Args:
+      verts: (B, V, 3); cam_wp: (B, 3) [s, tx, ty].
+      image: None (white background) or (B, img_wh, img_wh[, 3]) images to
+        composite over: the body replaces the pixels it covers, like the
+        reference's `rend_img * valid_mask + (1 - valid_mask) * img`.
+      rotate_x180: rotate the bodies 180 degrees about x first (the
+        reference's reposed T-pose view).
+      style: "lit" (the reference pyrender scene, `lit_face_colors`) or
+        "parts" (body-part colours shaded by the depth's normals).
+    Returns:
+      (B, img_wh, img_wh, 3) uint8 on the bodies' device.
+    """
+    if style not in ("lit", "parts"):
+        raise ValueError(f"unknown style {style!r}")
+    dev = verts.device
+    verts = verts.to(torch.float32)
+    if rotate_x180:
+        verts = verts * torch.tensor(_FLIP_YZ, device=dev)
+    cam_t, K = vis_camera(cam_wp.to(dev), img_wh)
+    fid, depth = render_face_ids(verts, cam_t, K, assets.faces, img_wh)
+    if style == "lit":
+        fg = fid >= 0
+        face_rgb = lit_face_colors(verts, assets.faces)
+        safe = fid.clamp(min=0).long()
+        color = face_rgb[torch.arange(fid.shape[0], device=dev)[:, None, None], safe]
+    else:
+        parts = face_ids_to_parts(fid, assets.face_parts)
+        fg = parts > 0
+        part_colors = torch.as_tensor(PART_COLORS, device=dev)
+        color = part_colors[parts.long()] * shade_depth(depth)[..., None]
+    if image is None:
+        base = torch.ones((), device=dev)
+    else:
+        base = image.to(device=dev, dtype=torch.float32)
+        if base.shape[1:3] != (img_wh, img_wh):
+            raise ValueError(f"image must be (B, {img_wh}, {img_wh}[, 3]), got "
+                             f"{tuple(base.shape)}: compositing over an image of "
+                             f"another size is not ported")
+        scale = torch.where(base.flatten(1).amax(dim=1) > 1.5, 255.0, 1.0)
+        base = base / scale.view(-1, *([1] * (base.ndim - 1)))
+        if base.ndim == 3:
+            base = base[..., None].expand(-1, -1, -1, 3)
+    out = torch.where(fg[..., None], color, base)
+    return (out.clamp(0.0, 1.0) * 255).to(torch.uint8)
+
+
+def render_body_vis(verts: torch.Tensor, cam_wp: torch.Tensor, assets,
+                    img_wh: int = 512, image: Optional[torch.Tensor] = None,
+                    rotate_x180: bool = False, style: str = "lit") -> torch.Tensor:
+    """One body: (V, 3) vertices, (3,) camera, optional (img_wh, img_wh[, 3])
+    image -> (img_wh, img_wh, 3) uint8; `render_body_vis_batch` with B = 1."""
+    return render_body_vis_batch(verts[None], cam_wp[None], assets, img_wh,
+                                 None if image is None else image[None],
+                                 rotate_x180, style)[0]
+
+
+def proxy_vis_batch(proxies: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) proxies -> (B, H, W) uint8: silhouette + summed
+    heatmaps clipped to [0, 1], through matplotlib's 'gray' mapping with
+    each image's own min and max (what `plt.imsave(..., cmap="gray")`
+    writes, with its float32 normalisation)."""
+    img = (proxies[..., 0] + proxies[..., 1:].sum(dim=-1)).clamp(0.0, 1.0).to(torch.float32)
+    vmin = img.flatten(1).amin(dim=1).view(-1, 1, 1).double()
+    vmax = img.flatten(1).amax(dim=1).view(-1, 1, 1).double()
+    t = (img.double() - vmin).to(torch.float32)
+    t = (t.double() / torch.where(vmax > vmin, vmax - vmin, 1.0)).to(torch.float32)
+    t = torch.where(vmax > vmin, t, 0.0)
+    idx = torch.floor(t * 256).clamp(0, 255).long()
+    return torch.as_tensor(_GRAY_LEVELS, device=img.device)[idx]
+
+
+def proxy_vis(proxy: torch.Tensor, out_path: str) -> None:
+    """Write one (H, W, C) proxy's `proxy_vis_batch` image as a PNG."""
+    write_png(out_path, proxy_vis_batch(proxy[None])[0].cpu().numpy())

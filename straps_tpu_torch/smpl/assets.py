@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from straps_tpu_torch import constants as C
+from straps_tpu_torch.utils.device import resolve_device
 
 SYNTHETIC_ASSETS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "assets", "synthetic_smpl.npz")
@@ -125,9 +126,10 @@ def derive_face_parts_from_cube(faces: np.ndarray, vertex_texture: np.ndarray,
 
 
 def load_assets(smpl_dir: Optional[str] = None, gender: str = "neutral",
-                device="cpu") -> SmplAssets:
+                device="cuda") -> SmplAssets:
     """Real SMPL assets from `smpl_dir` when its pkl exists, else the
-    synthetic fixture."""
+    synthetic fixture, on `device` (`cuda` raises without a card)."""
+    device = resolve_device(device)
     if smpl_dir is not None:
         pkl = os.path.join(smpl_dir, f"SMPL_{gender.upper()}.pkl")
         if os.path.exists(pkl):
@@ -163,8 +165,10 @@ def load_assets(smpl_dir: Optional[str] = None, gender: str = "neutral",
     return load_synthetic_assets(device=device)
 
 
-def load_synthetic_assets(device="cpu") -> SmplAssets:
+def load_synthetic_assets(device="cuda") -> SmplAssets:
     """The synthetic body fixture `assets/synthetic_smpl.npz` (committed;
-    generated by the JAX package's `smpl/fixtures.py`)."""
+    generated by the JAX package's `smpl/fixtures.py`), on `device` (`cuda`
+    raises without a card)."""
+    device = resolve_device(device)
     with np.load(SYNTHETIC_ASSETS) as f:
         return _to_assets(dict(f), device=device, is_synthetic=True)

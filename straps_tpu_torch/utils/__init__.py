@@ -1,1 +1,1 @@
-"""Device selection and numeric settings."""
+"""Device selection, numeric settings and the PNG writer."""

@@ -1,18 +1,21 @@
-"""The packed rasteriser's CUDA kernel against its plain version, on the card.
+"""The rasterisers' CUDA kernels against their plain versions, on the card.
 
 Skipped where CUDA is absent.  On an H100:
 `python -m pytest tests/test_torch_cuda.py -m cuda`.  Both sides round
-every product and sum separately, so the keys agree exactly.
+every product and sum separately, so the packed keys, the face ids and
+the depths agree exactly.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from straps_tpu_torch.config import PredictConfig
 from straps_tpu_torch.geometry.camera import get_intrinsics_matrix
+from straps_tpu_torch.predict.pipeline import predict_3d, save_proxies
 from straps_tpu_torch.render import cuda_raster as CR
 from straps_tpu_torch.render import raster as TR
-from straps_tpu_torch.render.renderer import render_silhouette
+from straps_tpu_torch.render.renderer import render_rgb, render_silhouette
 from straps_tpu_torch.smpl.assets import load_synthetic_assets
 from straps_tpu_torch.smpl.model import smpl_forward_axis_angle
 
@@ -68,3 +71,45 @@ def test_render_silhouette_goes_through_kernel(cuda):
     sil_cpu, _ = render_silhouette(verts.cpu(), cam_t.cpu(), K.cpu(),
                                    assets.faces.cpu(), 64, cull_backfaces=True)
     np.testing.assert_array_equal(sil.cpu().numpy(), sil_cpu.numpy())
+
+
+@pytest.mark.parametrize("img_wh,cull", [(64, True), (64, False), (250, False)])
+def test_faceid_kernel_matches_plain(cuda, img_wh, cull):
+    flat, bounds, _ = _smpl_inputs(cuda, img_wh, cull=cull)
+    before = CR.faceid_raster_kernel.launches
+    fid, depth = CR.faceid_raster_kernel(flat, bounds, img_wh, img_wh)
+    torch.cuda.synchronize()
+    assert CR.faceid_raster_kernel.launches == before + 1
+    fid_p, depth_p = CR.rasterize_faceid_reference(flat, bounds, img_wh, img_wh)
+    assert (fid_p >= 0).float().mean() > 0.02
+    assert torch.equal(fid, fid_p) and torch.equal(depth, depth_p)
+    assert torch.equal(depth == CR.FACEID_BG_DEPTH, fid < 0)
+
+
+def test_render_rgb_goes_through_faceid_kernel(cuda):
+    assets = load_synthetic_assets(device=cuda)
+    verts = assets.v_template[None].expand(2, -1, -1)
+    K = torch.as_tensor(get_intrinsics_matrix(64, 64, 1250.0), device=cuda)
+    cam_t = torch.tensor([0.0, 0.2, 42.0], device=cuda).expand(2, 3)
+    colors = torch.rand(assets.faces.shape[0], 3, generator=torch.Generator().manual_seed(0))
+    before = CR.faceid_raster_kernel.launches
+    rgb, depth = render_rgb(verts, cam_t, K, assets.faces, colors.to(cuda), 64)
+    assert CR.faceid_raster_kernel.launches == before + 1
+    rgb_cpu, depth_cpu = render_rgb(verts.cpu(), cam_t.cpu(), K.cpu(), assets.faces.cpu(),
+                                    colors, 64)
+    np.testing.assert_array_equal(rgb.cpu().numpy(), rgb_cpu.numpy())
+
+
+def test_predict_3d_renders_in_two_launches(cuda, tmp_path):
+    rng = np.random.RandomState(0)
+    sils = np.zeros((3, 128, 128), np.float32)
+    sils[:, 20:110, 40:90] = 1.0
+    joints = rng.uniform(45, 85, (3, 17, 2)).astype(np.float32)
+    save_proxies(str(tmp_path / "in"), ["a", "b", "c"], sils, joints)
+    cfg = PredictConfig(input_dir=str(tmp_path / "in"), out_dir=str(tmp_path / "out"),
+                        img_wh=64)
+    before = CR.faceid_raster_kernel.launches
+    out = predict_3d(cfg)
+    assert CR.faceid_raster_kernel.launches == before + 2
+    assert np.isfinite(out["verts"]).all()
+    assert len(list((tmp_path / "out" / "rend_vis").iterdir())) == 6

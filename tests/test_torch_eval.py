@@ -31,6 +31,7 @@ from straps_tpu_torch.eval_harness import runner as torch_runner
 from straps_tpu_torch.models.convert import (
     flax_to_torch_state_dict, state_dict_to_tensors,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 METRICS = ("pves", "pves_sc", "pves_pa", "pve-ts", "pve-ts_sc", "mpjpes",
            "mpjpes_sc", "mpjpes_pa", "silhouette_ious")
@@ -126,7 +127,7 @@ def test_mixed_gender_batches_are_invariant():
     and batches of 4 give the same metrics."""
     from straps_tpu_torch.smpl.assets import load_assets
 
-    base = load_assets(None)
+    base = load_assets(None, device="cpu")
     gender_assets = {"m": dataclasses.replace(base, v_template=base.v_template + 0.05),
                      "f": dataclasses.replace(base, v_template=base.v_template - 0.05),
                      "n": base}

@@ -23,6 +23,7 @@ from straps_tpu_torch.geometry import camera as TC
 from straps_tpu_torch.geometry import heatmaps as TH
 from straps_tpu_torch.geometry import joints as TJ
 from straps_tpu_torch.geometry import rotations as TR
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _both(fn_jax, fn_torch, *arrays):

@@ -1,6 +1,6 @@
 """Import guard of the PyTorch port: no file of `straps_tpu_torch/`, nor
-`chip_smoke.py`, imports JAX, flax, orbax, cv2 or the JAX package (the
-machine with the card has none of them)."""
+`chip_smoke.py`, imports JAX, flax, orbax, cv2, matplotlib, PIL or the JAX
+package (the machine with the card has none of them)."""
 
 import ast
 import pathlib
@@ -8,7 +8,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "cv2", "straps_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "cv2", "matplotlib", "PIL",
+             "straps_tpu")
 FILES = sorted((ROOT / "straps_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

@@ -1,11 +1,12 @@
-"""The PyTorch port's rasteriser against the JAX package.
+"""The PyTorch port's rasterisers against the JAX package.
 
-The plain version of the packed kernel (`rasterize_packed` on CPU tensors)
-is held against the JAX Pallas kernel run in interpret mode, with the
-bounds of `tests/test_render.py`: part map exact on the two-triangle scene
-(depth rtol 1e-5), part mismatch < 0.002 and depth within 8 ulps on the
-synthetic SMPL mesh.  Plane preparation and the chunk row bounds are held
-exactly; the plain face-id rasteriser exactly.
+The plain versions of the kernels (`rasterize_packed` and
+`rasterize_faceid` on CPU tensors) are held against the JAX Pallas kernels
+run in interpret mode, with the bounds of `tests/test_render.py`: part map
+and face ids exact on the two-triangle scene (depth rtol 1e-5), part
+mismatch < 0.002 on the synthetic SMPL mesh (packed depth within 8 ulps).
+Plane preparation and the chunk row bounds are held exactly; the plain
+`rasterize_xla` exactly.
 """
 
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ from straps_tpu.geometry import rodrigues
 from straps_tpu_torch.render import cuda_raster as CR
 from straps_tpu_torch.render import raster as TR
 from straps_tpu_torch.render import renderer as TRR
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def make_triangle_scene():
@@ -188,3 +190,105 @@ def test_kernel_wrapper_rejects_cpu_and_bad_inputs():
         with pytest.raises(ValueError, match="face_attr"):
             CR.rasterize_packed(planes, bounds, torch.tensor(bad), 8, 8)
     assert CR.packed_raster_kernel.launches == 0
+
+
+def test_faceid_triangles_vs_pallas_interpret():
+    screen, z, faces = make_triangle_scene()
+    pj, bj = _jax_planes(screen[None], z[None], faces, cull=False)
+    fid_j, z_j = rasterize_pallas(pj, bj, 64, 64, interpret=True)
+    pt, bt = _torch_planes(screen[None], z[None], faces, cull=False)
+    fid_t, z_t = CR.rasterize_faceid(pt, bt, 64, 64)
+    fid_j, z_j = np.asarray(fid_j), np.asarray(z_j)
+    assert set(np.unique(fid_j)) == {-1, 0, 1}
+    np.testing.assert_array_equal(fid_t.numpy(), fid_j)
+    fg = fid_j >= 0
+    np.testing.assert_allclose(z_t.numpy()[fg], z_j[fg], rtol=1e-5)
+    assert (z_t.numpy()[~fg] == np.float32(3.4e38)).all()
+    assert (z_j[~fg] == np.float32(3.4e38)).all()
+
+
+@pytest.mark.parametrize("cull", [False, True])
+def test_faceid_smpl_vs_pallas_interpret(smpl_scenes, cull):
+    assets, _, _, _, screen, z = smpl_scenes
+    faces = np.asarray(assets.faces)
+    fparts = np.asarray(assets.face_parts)
+    pj, bj = _jax_planes(screen, z, faces, cull)
+    fid_j, z_j = rasterize_pallas(pj, bj, 64, 64, interpret=True)
+    pt, bt = _torch_planes(screen, z, faces, cull)
+    fid_t, z_t = CR.rasterize_faceid(pt, bt, 64, 64)
+    fid_j, z_j, fid_t, z_t = map(np.asarray, (fid_j, z_j, fid_t, z_t))
+    parts_j = np.where(fid_j >= 0, fparts[np.maximum(fid_j, 0)], 0)
+    parts_t = np.where(fid_t >= 0, fparts[np.maximum(fid_t, 0)], 0)
+    assert (fid_j >= 0).mean() > 0.02 and len(np.unique(parts_j)) >= 3
+    assert (parts_t != parts_j).mean() < 0.002
+    same = (fid_t == fid_j) & (fid_j >= 0)
+    np.testing.assert_allclose(z_t[same], z_j[same], rtol=1e-5)
+
+
+def test_faceid_tie_takes_smallest_id_across_chunks():
+    """Coplanar copies of one triangle at ids 5, 130 and 131 (chunks 0 and
+    1) over a farther one at id 3: every pixel the near triangle covers
+    takes id 5, as the TPU kernel's argmin-first within a chunk and strict
+    `<` across chunks do."""
+    screen, z, faces = make_triangle_scene()
+    tri = np.asarray(JR.prepare_face_planes(jnp.asarray(screen[None]), jnp.asarray(z[None]),
+                                            jnp.asarray(faces)).planes)[0]
+    planes = np.zeros((1, 140, 4, 3), np.float32)
+    planes[0, :, :3, 2] = -1.0                      # never covered
+    planes[0, 3] = tri[0]                           # far big triangle
+    planes[0, [5, 130, 131]] = tri[1]               # near small triangle
+    bounds = np.tile(np.array([[[0, 64]]], np.int32), (1, 2, 1))
+    fid_j, _ = rasterize_pallas(jnp.asarray(planes), jnp.asarray(bounds), 64, 64, interpret=True)
+    fid_t, _ = CR.rasterize_faceid(torch.as_tensor(planes), torch.as_tensor(bounds), 64, 64)
+    np.testing.assert_array_equal(fid_t.numpy(), np.asarray(fid_j))
+    assert set(np.unique(fid_t.numpy())) == {-1, 3, 5}
+
+
+def test_faceid_plain_sub_batches_and_ragged_size(monkeypatch):
+    """The plain face-id version is the same in sub-batches, at any image
+    size, and with its chunk-band skip as with every row evaluated."""
+    screen, z, faces = make_triangle_scene()
+    screens = np.stack([screen, screen + 3.0, screen - 2.0]).astype(np.float32)
+    zs = np.stack([z, z * 2.0, z + 1.0]).astype(np.float32)
+    pt, _ = _torch_planes(screens, zs, faces, cull=False)
+    flat = CR.flatten_planes(pt)
+    tight = TR.face_chunk_row_bounds(torch.as_tensor(screens), torch.as_tensor(faces), 128, 61)
+    loose = torch.tensor([[[0, 61]]] * 3, dtype=torch.int32)
+    fid, depth = CR.rasterize_faceid_reference(flat, tight, 61, 45)
+    assert fid.shape == depth.shape == (3, 61, 45)
+    fid_l, depth_l = CR.rasterize_faceid_reference(flat, loose, 61, 45)
+    monkeypatch.setattr(CR, "_PLAIN_TEMP_BYTES", 128 * 61 * 45 * 4)   # one body per sub-batch
+    fid_s, depth_s = CR.rasterize_faceid_reference(flat, tight, 61, 45)
+    for f, d in ((fid_l, depth_l), (fid_s, depth_s)):
+        np.testing.assert_array_equal(f.numpy(), fid.numpy())
+        np.testing.assert_array_equal(d.numpy(), depth.numpy())
+
+
+def test_render_rgb_vs_jax(smpl_scenes):
+    assets, verts, cam_t, K, _, _ = smpl_scenes
+    colors = np.random.RandomState(3).rand(np.asarray(assets.faces).shape[0], 3).astype(np.float32)
+    rgb_j, z_j = JRR.render_rgb(jnp.asarray(verts), jnp.asarray(cam_t), jnp.asarray(K),
+                                assets.faces, jnp.asarray(colors), 64,
+                                backend="pallas", interpret=True)
+    faces_t = torch.as_tensor(np.asarray(assets.faces))
+    args = (torch.as_tensor(verts), torch.as_tensor(cam_t), torch.as_tensor(K), faces_t)
+    rgb_t, z_t = TRR.render_rgb(*args, torch.as_tensor(colors), 64)
+    rgb_j, rgb_t = np.asarray(rgb_j), rgb_t.numpy()
+    assert rgb_t.shape == (3, 64, 64, 3) and (rgb_j.sum(-1) > 0).mean() > 0.02
+    assert (np.abs(rgb_t - rgb_j).max(-1) > 0).mean() < 0.002
+    fg = np.asarray(z_j) < np.float32(3.4e38)
+    np.testing.assert_allclose(z_t.numpy()[fg], np.asarray(z_j)[fg], rtol=1e-5)
+
+
+def test_faceid_rasteriser_device_rule_and_wrapper_checks():
+    flat = torch.zeros((1, 128, 12))
+    bounds = torch.zeros((1, 1, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        CR.faceid_raster_kernel(flat, bounds, 8, 8)
+    with pytest.raises(ValueError, match="bounds"):
+        CR.faceid_raster_kernel(flat, bounds.long(), 8, 8)
+    with pytest.raises(ValueError, match="planes"):
+        CR.faceid_raster_kernel(torch.zeros((1, 128, 12), dtype=torch.float64), bounds, 8, 8)
+    with pytest.raises(ValueError, match="device meta"):
+        CR.rasterize_faceid(torch.zeros((1, 2, 4, 3), device="meta"), bounds, 8, 8)
+    assert CR.faceid_raster_kernel.launches == 0

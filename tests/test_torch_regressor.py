@@ -25,6 +25,7 @@ from straps_tpu_torch.models.convert import (
 from straps_tpu_torch.models.regressor import build_regressor
 from straps_tpu_torch.predict import pipeline as TP
 from straps_tpu_torch.smpl.assets import load_synthetic_assets as torch_assets
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 IMG = 64
 
@@ -102,7 +103,7 @@ def test_reference_checkpoint_and_predict_rollout(jax_variables, tmp_path):
 
     cfg = PredictConfig(checkpoint=path, img_wh=IMG)
     cfg.model.compute_dtype = None
-    tassets = torch_assets()
+    tassets = torch_assets(device="cpu")
     model, mode = TP.load_regressor_variables(cfg, tassets, device="cpu")
     assert mode == "legacy"
     proxies = _proxies(2)
@@ -117,7 +118,7 @@ def test_reference_checkpoint_and_predict_rollout(jax_variables, tmp_path):
 
 
 def test_random_init_is_seeded_and_heatmap_mode_resolves():
-    tassets = torch_assets()
+    tassets = torch_assets(device="cpu")
     cfg = PredictConfig(img_wh=IMG)
     m1, mode = TP.load_regressor_variables(cfg, tassets, device="cpu", seed=3)
     m2, _ = TP.load_regressor_variables(cfg, tassets, device="cpu", seed=3)

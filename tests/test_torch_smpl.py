@@ -13,13 +13,14 @@ from straps_tpu.smpl import model as JM
 from straps_tpu.train.synthetic import select_joint_sets as jax_select
 from straps_tpu_torch.smpl import assets as TAS
 from straps_tpu_torch.smpl import model as TM
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-5
 
 
 @pytest.fixture(scope="module")
 def assets():
-    return jax_assets(), TAS.load_synthetic_assets()
+    return jax_assets(), TAS.load_synthetic_assets(device="cpu")
 
 
 def test_assets_match_jax(assets):
