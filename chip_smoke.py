@@ -26,8 +26,10 @@ Phases, each of which raises on failure:
        joints of synthetic bodies) with the same checkpoint, at 256x256:
        npy outputs finite, every render has foreground, and exactly 2
        face-id kernel launches (all rend renders, all reposed renders);
-       then the same predict at 64x64 in float32 on the card and on the
-       CPU, which must agree;
+       the face-id kernel held against its plain version on the inputs of
+       those two launches (B=64, 256x256, unculled), as in phase 3; then
+       the same predict at 64x64 in float32 on the card and on the CPU,
+       which must agree;
   5. times: each kernel at B=64, 256x256 (packed: culled eval bodies;
      face-id: unculled, the predict renders' own bodies), beside its bound
      and its plain version; the evaluation's and the predict's wall time;
@@ -50,10 +52,14 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-H100_FP32_FLOPS = 67e12       # FP32 outside the tensor cores (data sheet, SXM)
+# FP32 outside the tensor cores: 67 TFLOP/s on the data sheet (SXM) counts
+# an FMA as 2; the kernels forbid FMA, so each product and each sum is one
+# instruction at half that rate.
+H100_FP32_UNFUSED_OPS = 33.5e12
 H100_HBM_BYTES_S = 3.35e12
-FLOPS_PER_EDGE_PASS = 12      # 3 edge planes x (2 mul + 2 add), no FMA
-FLOPS_PER_DEPTH = 4           # the depth plane, on covered pixels only
+OPS_PER_PIXEL_FACE = 6        # 3 edge planes x (a*x, + (b*y + c))
+OPS_PER_ROW_FACE = 6          # 3 edge planes x (b*y, + c): shared by a pixel row
+OPS_PER_COVERED = 4           # the depth plane, on covered pixels only
 
 
 def card_line() -> str:
@@ -182,10 +188,11 @@ def kernel_bound_ms(flat, bounds, img_h, img_w, other_in_bytes, out_bytes_per_pi
     """Least time for a rasteriser kernel's work on these inputs: the
     larger of the bytes (inputs read once: planes, bounds and
     `other_in_bytes`; outputs written once, `out_bytes_per_pixel`) over HBM
-    bandwidth and the FP32 operations over the FP32 peak.  The operations
-    are the three edge planes of every pixel-face pair in the (8-row strip,
-    chunk) pairs whose row band overlaps the strip, and the depth plane of
-    every pair where the pixel is covered."""
+    bandwidth and the unfused FP32 operations over their peak rate.  The
+    operations are the three edge planes of every pixel-face pair in the
+    (8-row strip, chunk) pairs whose row band overlaps the strip (`b*y + c`
+    once per pixel row and face, `a*x` and the last sum per pixel), and the
+    depth plane of every pair where the pixel is covered."""
     from straps_tpu_torch.render import cuda_raster as CR
 
     B = flat.shape[0]
@@ -195,14 +202,16 @@ def kernel_bound_ms(flat, bounds, img_h, img_w, other_in_bytes, out_bytes_per_pi
     rows = torch.clamp(img_h - strip0, max=CR.ROWS_PER_TILE)           # (S,)
     lo, hi = bounds[..., 0, None], bounds[..., 1, None]                 # (B, C, 1)
     overlap = (lo < strip0 + CR.ROWS_PER_TILE) & (hi > strip0)         # (B, C, S)
-    pixel_faces = int((overlap * rows).sum().item()) * img_w * CR.FACE_CHUNK
+    row_faces = int((overlap * rows).sum().item()) * CR.FACE_CHUNK
+    pixel_faces = row_faces * img_w
     covered = covered_pixel_faces(flat, bounds, img_h, img_w)
-    flops = pixel_faces * FLOPS_PER_EDGE_PASS + covered * FLOPS_PER_DEPTH
-    t_bytes, t_ops = nbytes / H100_HBM_BYTES_S * 1e3, flops / H100_FP32_FLOPS * 1e3
-    print(f"kernel bound: {nbytes} bytes -> {t_bytes:.4f} ms; {flops} FP32 ops "
+    ops = (pixel_faces * OPS_PER_PIXEL_FACE + row_faces * OPS_PER_ROW_FACE
+           + covered * OPS_PER_COVERED)
+    t_bytes, t_ops = nbytes / H100_HBM_BYTES_S * 1e3, ops / H100_FP32_UNFUSED_OPS * 1e3
+    print(f"kernel bound: {nbytes} bytes -> {t_bytes:.4f} ms; {ops} unfused FP32 ops "
           f"({pixel_faces} pixel-face pairs in {int(overlap.sum())} strip-chunk "
-          f"overlaps x {FLOPS_PER_EDGE_PASS}, {covered} covered x "
-          f"{FLOPS_PER_DEPTH}) -> {t_ops:.4f} ms")
+          f"overlaps x {OPS_PER_PIXEL_FACE}, {row_faces} row-face pairs x "
+          f"{OPS_PER_ROW_FACE}, {covered} covered x {OPS_PER_COVERED}) -> {t_ops:.4f} ms")
     return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
 
 
@@ -228,16 +237,20 @@ def write_t_pose_checkpoint(path, assets, fc3_weight_scale=0.0):
     torch.save({"best_model_state_dict": model.state_dict()}, path)
 
 
-def vis_faceid_inputs(assets, verts, cam_wp, img_wh):
+def vis_faceid_inputs(assets, verts, cam_wp, img_wh, rotate_x180=False):
     """The face-id kernel's inputs for `render_body_vis_batch` of these
-    bodies (lit, unrotated): planes and unculled row bounds."""
+    bodies: planes and unculled row bounds, the bodies rotated 180 degrees
+    about x first with `rotate_x180`, as that function does."""
     from straps_tpu_torch.render import cuda_raster as CR
     from straps_tpu_torch.render import raster as R
     from straps_tpu_torch.render.vis import vis_camera
 
     dev = assets.device
+    verts = torch.as_tensor(verts, device=dev).to(torch.float32)
+    if rotate_x180:
+        verts = verts * torch.tensor((1.0, -1.0, -1.0), device=dev)
     cam_t, K = vis_camera(torch.as_tensor(cam_wp, device=dev), img_wh)
-    screen, z = R.project_to_screen(torch.as_tensor(verts, device=dev), cam_t, K)
+    screen, z = R.project_to_screen(verts, cam_t, K)
     planes = R.prepare_face_planes(screen, z, assets.faces)
     bounds = R.face_chunk_row_bounds(screen, assets.faces, CR.FACE_CHUNK, img_wh)
     return CR.flatten_planes(planes), bounds.contiguous()
@@ -337,7 +350,7 @@ def main() -> int:
     from straps_tpu_torch.config import PredictConfig
     from straps_tpu_torch.eval_harness.runner import run_evaluation, synthesise_proxy_inputs
     from straps_tpu_torch.predict.pipeline import (
-        load_regressor_variables, make_predict_fn, predict_3d, save_proxies,
+        REPOSED_CAM_WP, load_regressor_variables, make_predict_fn, predict_3d, save_proxies,
     )
     from straps_tpu_torch.render import cuda_raster as CR
     from straps_tpu_torch.render import raster as R
@@ -470,6 +483,16 @@ def main() -> int:
     if faceid_launches != 2:
         raise AssertionError(f"predict renders: {faceid_launches} face-id kernel launches, want 2")
 
+    # The face-id kernel against its plain version on the inputs of the two
+    # launches the predict just made: all rend bodies, all reposed bodies.
+    rend_in = vis_faceid_inputs(assets, pred["verts"], pred["cam_wp"], 256)
+    faceid_errs.append(compare_faceid(f"predict rend B={n} 256x256", *rend_in, 256, 256))
+    reposed_in = vis_faceid_inputs(assets, pred["reposed_verts"],
+                                   torch.tensor(REPOSED_CAM_WP).expand(n, 3), 256,
+                                   rotate_x180=True)
+    faceid_errs.append(compare_faceid(f"predict reposed B={n} 256x256", *reposed_in,
+                                      256, 256))
+
     # The same predict, small and float32, on the card and on the CPU.
     outs = {}
     for device in ("cuda", "cpu"):
@@ -505,7 +528,7 @@ def main() -> int:
           f"{kernel_ms:.4f} ms (bound {bound_ms:.4f} ms by {bound_by}, "
           f"{100 * bound_ms / kernel_ms:.1f}% of it); plain version {plain_ms:.3f} ms")
 
-    flat, bounds = vis_faceid_inputs(assets, pred["verts"], pred["cam_wp"], 256)
+    flat, bounds = rend_in
     faceid_ms = cuda_ms(lambda: CR.faceid_raster_kernel(flat, bounds, 256, 256), 50)
     faceid_plain_ms = cuda_ms(lambda: CR.rasterize_faceid_reference(flat, bounds, 256, 256), 3)
     faceid_bound_ms, faceid_bound_by = kernel_bound_ms(flat, bounds, 256, 256, 0, 8)

@@ -21,9 +21,13 @@
 // read once (planes, bounds) and each output written once (4 + 4 bytes a
 // pixel), some 80 MB for a batch of 64 SMPL meshes at 256x256, ~25 us of
 // HBM time; the edge planes of the (8-row strip, face chunk) pairs that
-// overlap are 12 FP32 operations per pixel and face, and the depth plane 4
-// more where the pixel is covered, some 1e11 operations for the same batch
-// unculled, ~1.5 ms at the FP32 peak.
+// overlap need 6 FP32 operations per pixel and face (`a*x` and a sum per
+// edge; `b*y + c` depends only on the row and the face), and the depth
+// plane 4 more where the pixel is covered, some 3e10 operations for the
+// same batch unculled.  With FMA forbidden (below) each is one
+// instruction, at half the 67 TFLOP/s data-sheet rate: ~0.8 ms.  The
+// kernel below computes `b*y + c` at every pixel, 12 operations per pixel
+// and face, twice what the bound charges.
 //
 // What the design does about it:
 //   * one thread per pixel of a 32 x 8 tile, one warp per pixel row, so a

@@ -14,9 +14,12 @@
 // What bounds it on this card: operations, not bytes.  Each input byte is
 // read once (planes, bounds, attributes) and each output int written once,
 // some 60 MB for a batch of 64 SMPL meshes at 256x256, which is ~18 us of
-// HBM time; the plane evaluations over the (8-row strip, face chunk) pairs
-// that overlap are ~16 FP32 operations per pixel and face, some 1e10-1e11
-// for the same batch, which is ~1 ms at the FP32 peak.
+// HBM time; the edge planes over the (8-row strip, face chunk) pairs that
+// overlap need 6 FP32 operations per pixel and face (`a*x` and a sum per
+// edge; `b*y + c` depends only on the row and the face), and the depth
+// plane 4 more where the pixel is covered, some 3e10 for the same batch.
+// With FMA forbidden (below) each is one instruction, at half the 67
+// TFLOP/s data-sheet rate: ~1 ms.
 //
 // What the design does about it:
 //   * one thread per pixel of a 32 x 8 tile, one warp per pixel row, so a
