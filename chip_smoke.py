@@ -5,14 +5,17 @@
 
 Phases, each of which raises on failure:
   1. device: a CUDA card is required; prints its name and power limit;
-  2. build: compiles both rasteriser kernels from `straps_tpu_torch/csrc`,
-     one nvcc each, started together;
+  2. build: compiles both rasteriser kernels from `straps_tpu_torch/csrc`
+     (each `.cu` with the shared `raster_span.cuh`), and each once more
+     with plain staging in place of the bulk-copy ring for the timing of
+     phase 5, one nvcc each, all started together;
   3. kernels vs plain: each kernel against its plain PyTorch version on the
-     card.  Packed keys: two triangles, part map exact; the synthetic SMPL
-     mesh at 256x256, B=8 and B=32, and a ragged 250x250, part mismatch
-     < 0.002 and depth within 8 ulps where both cover.  Face ids: the same
-     scenes, triangles exact, SMPL face-id mismatch < 0.002 and depth rtol
-     1e-5 where both cover;
+     card, bit for bit (packed keys; face ids and depths): two triangles;
+     the synthetic SMPL mesh at 256x256, B=8 and B=32, culled and not, a
+     ragged 250x250 and a 512x512 of two 256-column tiles; the scenes of
+     `tests/raster_scenes.py` (wide triangles across tile edges, ragged
+     widths, near-horizontal edges, vertices on pixel centres, special
+     planes, a coplanar depth tie across two chunks);
   4. slices, each with every kernel's launch count set to 0 just before it
      and read just after:
      - the evaluation CLI on 64 synthetic samples at full width (256x256
@@ -26,15 +29,16 @@ Phases, each of which raises on failure:
        joints of synthetic bodies) with the same checkpoint, at 256x256:
        npy outputs finite, every render has foreground, and exactly 2
        face-id kernel launches (all rend renders, all reposed renders);
-       the face-id kernel held against its plain version on the inputs of
-       those two launches (B=64, 256x256, unculled), as in phase 3; then
+       the face-id kernel held against its plain version, bit for bit, on
+       the inputs of those two launches (B=64, 256x256, unculled); then
        the same predict at 64x64 in float32 on the card and on the CPU,
        which must agree;
   5. times: each kernel at B=64, 256x256 (packed: culled eval bodies;
-     face-id: unculled, the predict renders' own bodies), beside its bound
-     and its plain version; the evaluation's and the predict's wall time;
-     proxy -> SMPL inferences/s at batch 256.
-The line before the last is the `kernels` JSON, the last the result JSON.
+     face-id: unculled, the predict renders' own bodies), beside its bound,
+     its plain-staging build and its plain version; the evaluation's and
+     the predict's wall time; proxy -> SMPL inferences/s at batch 256.
+The card's name and power limit come two lines before the last, the
+`kernels` JSON on the line before the last, the result JSON last.
 Exits non-zero without a card, and outside a checkout of the repository.
 """
 
@@ -60,6 +64,8 @@ H100_HBM_BYTES_S = 3.35e12
 OPS_PER_PIXEL_FACE = 6        # 3 edge planes x (a*x, + (b*y + c))
 OPS_PER_ROW_FACE = 6          # 3 edge planes x (b*y, + c): shared by a pixel row
 OPS_PER_COVERED = 4           # the depth plane, on covered pixels only
+# Build flag of the kernels' plain-staging variant (csrc/raster_span.cuh).
+SYNC_STAGING = ("-DRASTER_SPAN_SYNC_STAGING",)
 
 
 def card_line() -> str:
@@ -107,9 +113,10 @@ def smpl_kernel_inputs(assets, img_wh, B, seed, cull=True):
     return flat, bounds.contiguous(), attr
 
 
-def compare_kernel(name, flat, bounds, attr, img_h, img_w, exact=False):
-    """Kernel vs plain version on the same card inputs; returns the max
-    absolute depth error where both cover."""
+def compare_kernel(name, flat, bounds, attr, img_h, img_w):
+    """Packed kernel vs its plain version on the same card inputs: the keys
+    must be identical.  Returns the max absolute depth error where both
+    cover (0 when they agree)."""
     from straps_tpu_torch.render import cuda_raster as CR
 
     got = CR.packed_raster_kernel(flat, bounds, attr, img_h, img_w)
@@ -119,24 +126,22 @@ def compare_kernel(name, flat, bounds, attr, img_h, img_w, exact=False):
     parts_p, z_p = CR.unpack_keys(want)
     mismatch = (parts_k != parts_p).float().mean().item()
     both = (parts_k > 0) & (parts_p > 0)
-    ulps = (z_k.view(torch.int32).long() - z_p.view(torch.int32).long()).abs()[both]
-    max_ulps = int(ulps.max().item()) if ulps.numel() else 0
-    err = float((z_k - z_p).abs()[both].max().item()) if ulps.numel() else 0.0
+    err = float((z_k - z_p).abs()[both].max().item()) if both.any() else 0.0
     fg = (parts_p > 0).float().mean().item()
-    print(f"kernel vs plain [{name}]: part mismatch {mismatch} (bound "
-          f"{'0' if exact else '0.002'}), depth max {max_ulps} ulps / {err} abs "
-          f"(bound 8 ulps), foreground {fg:.4f}, keys identical "
-          f"{torch.equal(got, want)}")
+    identical = torch.equal(got, want)
+    print(f"kernel vs plain [{name}]: keys identical {identical} (part mismatch "
+          f"{mismatch}, depth max abs error {err}), foreground {fg:.4f}")
     if fg <= 0.0:
         raise AssertionError(f"{name}: empty render")
-    if (exact and mismatch != 0.0) or mismatch >= 0.002 or max_ulps > 8:
+    if not identical:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return err
 
 
-def compare_faceid(name, flat, bounds, img_h, img_w, exact=False):
-    """Face-id kernel vs its plain version on the same card inputs; returns
-    the max absolute depth error where both cover."""
+def compare_faceid(name, flat, bounds, img_h, img_w):
+    """Face-id kernel vs its plain version on the same card inputs: face
+    ids and depths must be identical.  Returns the max absolute depth error
+    where both cover (0 when they agree)."""
     from straps_tpu_torch.render import cuda_raster as CR
 
     fid_k, z_k = CR.faceid_raster_kernel(flat, bounds, img_h, img_w)
@@ -144,19 +149,16 @@ def compare_faceid(name, flat, bounds, img_h, img_w, exact=False):
     fid_p, z_p = CR.rasterize_faceid_reference(flat, bounds, img_h, img_w)
     mismatch = (fid_k != fid_p).float().mean().item()
     both = (fid_k >= 0) & (fid_p >= 0)
-    rel = ((z_k - z_p).abs() / z_p.abs())[both]
-    max_rel = float(rel.max().item()) if rel.numel() else 0.0
-    err = float((z_k - z_p).abs()[both].max().item()) if rel.numel() else 0.0
+    err = float((z_k - z_p).abs()[both].max().item()) if both.any() else 0.0
     bg_ok = bool(((z_k == CR.FACEID_BG_DEPTH) == (fid_k < 0)).all().item())
     fg = (fid_p >= 0).float().mean().item()
     identical = torch.equal(fid_k, fid_p) and torch.equal(z_k, z_p)
-    print(f"face-id kernel vs plain [{name}]: face-id mismatch {mismatch} (bound "
-          f"{'0' if exact else '0.002'}), depth max rel {max_rel} / {err} abs (bound "
-          f"{'0' if exact else '1e-5'}), foreground {fg:.4f}, background depth 3.4e38 "
-          f"{bg_ok}, outputs identical {identical}")
+    print(f"face-id kernel vs plain [{name}]: outputs identical {identical} (face-id "
+          f"mismatch {mismatch}, depth max abs error {err}), foreground {fg:.4f}, "
+          f"background depth 3.4e38 {bg_ok}")
     if fg <= 0.0 or not bg_ok:
         raise AssertionError(f"{name}: empty render or a wrong background depth")
-    if (exact and not identical) or mismatch >= 0.002 or max_rel > 1e-5:
+    if not identical:
         raise AssertionError(f"{name}: face-id kernel disagrees with its plain version")
     return err
 
@@ -189,29 +191,41 @@ def kernel_bound_ms(flat, bounds, img_h, img_w, other_in_bytes, out_bytes_per_pi
     larger of the bytes (inputs read once: planes, bounds and
     `other_in_bytes`; outputs written once, `out_bytes_per_pixel`) over HBM
     bandwidth and the unfused FP32 operations over their peak rate.  The
-    operations are the three edge planes of every pixel-face pair in the
-    (8-row strip, chunk) pairs whose row band overlaps the strip (`b*y + c`
-    once per pixel row and face, `a*x` and the last sum per pixel), and the
-    depth plane of every pair where the pixel is covered."""
+    operations are what the span kernels cannot skip: the three edges' row
+    terms `b*y + c` of every (row, face) pair inside each chunk's own band,
+    and the depth plane of every pair where the pixel is covered.  The
+    dense count of PRs 1-2 (every pixel-face pair of every (8-row strip,
+    chunk) whose band overlaps the strip) is printed the line before."""
     from straps_tpu_torch.render import cuda_raster as CR
 
     B = flat.shape[0]
     nbytes = (flat.numel() * 4 + bounds.numel() * 4 + other_in_bytes
               + B * img_h * img_w * out_bytes_per_pixel)
+    covered = covered_pixel_faces(flat, bounds, img_h, img_w)
+    t_bytes = nbytes / H100_HBM_BYTES_S * 1e3
+
     strip0 = torch.arange(0, img_h, CR.ROWS_PER_TILE, device=bounds.device)
     rows = torch.clamp(img_h - strip0, max=CR.ROWS_PER_TILE)           # (S,)
     lo, hi = bounds[..., 0, None], bounds[..., 1, None]                 # (B, C, 1)
     overlap = (lo < strip0 + CR.ROWS_PER_TILE) & (hi > strip0)         # (B, C, S)
-    row_faces = int((overlap * rows).sum().item()) * CR.FACE_CHUNK
-    pixel_faces = row_faces * img_w
-    covered = covered_pixel_faces(flat, bounds, img_h, img_w)
-    ops = (pixel_faces * OPS_PER_PIXEL_FACE + row_faces * OPS_PER_ROW_FACE
-           + covered * OPS_PER_COVERED)
-    t_bytes, t_ops = nbytes / H100_HBM_BYTES_S * 1e3, ops / H100_FP32_UNFUSED_OPS * 1e3
+    strip_row_faces = int((overlap * rows).sum().item()) * CR.FACE_CHUNK
+    pixel_faces = strip_row_faces * img_w
+    dense_ops = (pixel_faces * OPS_PER_PIXEL_FACE + strip_row_faces * OPS_PER_ROW_FACE
+                 + covered * OPS_PER_COVERED)
+    t_dense = dense_ops / H100_FP32_UNFUSED_OPS * 1e3
+    print(f"kernel bound, dense count of PRs 1-2: {dense_ops} unfused FP32 ops "
+          f"({pixel_faces} pixel-face pairs in {int(overlap.sum())} strip-chunk overlaps "
+          f"x {OPS_PER_PIXEL_FACE}, {strip_row_faces} row-face pairs x {OPS_PER_ROW_FACE}, "
+          f"{covered} covered x {OPS_PER_COVERED}) -> {t_dense:.4f} ms; bound "
+          f"{max(t_dense, t_bytes):.4f} ms")
+
+    band_row_faces = int((bounds[..., 1] - bounds[..., 0]).clamp(min=0).sum().item()) \
+        * CR.FACE_CHUNK
+    ops = band_row_faces * OPS_PER_ROW_FACE + covered * OPS_PER_COVERED
+    t_ops = ops / H100_FP32_UNFUSED_OPS * 1e3
     print(f"kernel bound: {nbytes} bytes -> {t_bytes:.4f} ms; {ops} unfused FP32 ops "
-          f"({pixel_faces} pixel-face pairs in {int(overlap.sum())} strip-chunk "
-          f"overlaps x {OPS_PER_PIXEL_FACE}, {row_faces} row-face pairs x "
-          f"{OPS_PER_ROW_FACE}, {covered} covered x {OPS_PER_COVERED}) -> {t_ops:.4f} ms")
+          f"({band_row_faces} row-face pairs in the chunks' bands x {OPS_PER_ROW_FACE}, "
+          f"{covered} covered x {OPS_PER_COVERED}) -> {t_ops:.4f} ms")
     return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
 
 
@@ -293,7 +307,8 @@ def write_eval_npz(path, n, seed):
 
 def profile_run(card, label, n, unit, run, top=10):
     """Wall time of `run()` twice (the second warm), then one profiled run:
-    the device busy share and the entries with the most device time."""
+    the device busy share, the entries with the most device time and the
+    rasteriser kernels' entries."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -328,7 +343,9 @@ def profile_run(card, label, n, unit, run, top=10):
     print(f"profile on {card}: {label} {wall_ms:.2f} ms wall under the profiler, device "
           f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%")
-    for e in events[:top]:
+    # The entries with the most device time, and the rasteriser kernels'
+    # wherever they rank.
+    for e in events[:top] + [e for e in events[top:] if "span_raster" in e.key]:
         print(f"  {device_us(e) / 1e3:9.3f} ms {100 * device_us(e) / 1e3 / busy_ms:5.1f}%"
               f"  x{e.count:<5d} {e.key[:100]}")
 
@@ -356,14 +373,18 @@ def main() -> int:
     from straps_tpu_torch.render import raster as R
     from straps_tpu_torch.smpl.assets import load_synthetic_assets
     from straps_tpu_torch.utils.device import resolve_device
+    sys.path.insert(0, os.path.join(here, "tests"))
+    from raster_scenes import KERNEL_SCENES
 
     dev = resolve_device("cuda")
 
-    # 2. Build: one nvcc per kernel source, all started together.
+    # 2. Build: one nvcc per kernel library, all started together.
+    sync_staged = (CR._PackedRasterKernel(SYNC_STAGING), CR._FaceIdRasterKernel(SYNC_STAGING))
+    builds = CR.KERNELS + sync_staged
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(CR.KERNELS)) as pool:
-        libs = list(pool.map(lambda k: CR.build_library(k.source), CR.KERNELS))
-    for kernel in CR.KERNELS:
+    with ThreadPoolExecutor(len(builds)) as pool:
+        libs = list(pool.map(lambda k: CR.build_library(k.source, k.flags), builds))
+    for kernel in builds:
         kernel.function()
     print(f"build: {', '.join(libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
@@ -379,19 +400,23 @@ def main() -> int:
     flat, attr = CR.pack_planes(R.prepare_face_planes(scr[None], zz[None], tri),
                                 torch.tensor([3, 5], device=dev))
     tri_bounds = R.face_chunk_row_bounds(scr[None], tri, CR.FACE_CHUNK, 64)
-    errs = [compare_kernel("two triangles 64x64", flat, tri_bounds, attr, 64, 64,
-                           exact=True)]
-    faceid_errs = [compare_faceid("two triangles 64x64", flat, tri_bounds, 64, 64,
-                                  exact=True)]
-    for B, wh, cull in ((8, 256, True), (32, 256, True), (8, 256, False), (8, 250, True)):
+    errs = [compare_kernel("two triangles 64x64", flat, tri_bounds, attr, 64, 64)]
+    faceid_errs = [compare_faceid("two triangles 64x64", flat, tri_bounds, 64, 64)]
+    for B, wh, cull in ((8, 256, True), (32, 256, True), (8, 256, False), (8, 250, True),
+                        (8, 512, True)):
         errs.append(compare_kernel(f"SMPL B={B} {wh}x{wh} cull={cull}",
                                    *smpl_kernel_inputs(assets, wh, B, seed=B + wh, cull=cull),
                                    wh, wh))
     for B, wh, cull in ((8, 256, False), (8, 256, True), (32, 256, False), (32, 256, True),
-                        (8, 250, False)):
+                        (8, 250, False), (8, 512, False)):
         flat, bounds, _ = smpl_kernel_inputs(assets, wh, B, seed=B + wh + 1, cull=cull)
         faceid_errs.append(compare_faceid(f"SMPL B={B} {wh}x{wh} cull={cull}",
                                           flat, bounds, wh, wh))
+    for name, scene in KERNEL_SCENES.items():
+        flat, bounds, attr, img_h, img_w = (t.to(dev) if torch.is_tensor(t) else t
+                                            for t in scene())
+        errs.append(compare_kernel(name, flat, bounds, attr, img_h, img_w))
+        faceid_errs.append(compare_faceid(name, flat, bounds, img_h, img_w))
     max_abs_err = max(errs)
 
     # 4a. The evaluation slice: the evaluation CLI at full width.
@@ -519,23 +544,39 @@ def main() -> int:
     if worst_npy > 1e-4 or moved >= 0.002:
         raise AssertionError("predict on the card disagrees with the CPU")
 
-    # 5. Times.
+    # 5. Times.  Each kernel beside its plain-staging build, in turns.
     flat, bounds, attr = smpl_kernel_inputs(assets, 256, 64, seed=5)
-    kernel_ms = cuda_ms(lambda: CR.packed_raster_kernel(flat, bounds, attr, 256, 256), 50)
-    plain_ms = cuda_ms(lambda: CR.rasterize_packed_reference(flat, bounds, attr, 256, 256), 3)
+    packed_args = (flat, bounds, attr, 256, 256)
+    if not torch.equal(sync_staged[0](*packed_args), CR.packed_raster_kernel(*packed_args)):
+        raise AssertionError("packed kernel: plain staging and the ring disagree")
+    ring, sync = [], []
+    for _ in range(2):
+        ring.append(cuda_ms(lambda: CR.packed_raster_kernel(*packed_args), 200))
+        sync.append(cuda_ms(lambda: sync_staged[0](*packed_args), 200))
+    kernel_ms = min(ring)
+    plain_ms = cuda_ms(lambda: CR.rasterize_packed_reference(*packed_args), 3)
     bound_ms, bound_by = kernel_bound_ms(flat, bounds, 256, 256, attr.numel() * 4, 4)
     print(f"times on {card}: packed raster kernel B=64 256x256 culled "
           f"{kernel_ms:.4f} ms (bound {bound_ms:.4f} ms by {bound_by}, "
-          f"{100 * bound_ms / kernel_ms:.1f}% of it); plain version {plain_ms:.3f} ms")
+          f"{100 * bound_ms / kernel_ms:.1f}% of it); plain version {plain_ms:.3f} ms; "
+          f"bulk-copy ring {ring} ms, plain staging {sync} ms")
 
     flat, bounds = rend_in
-    faceid_ms = cuda_ms(lambda: CR.faceid_raster_kernel(flat, bounds, 256, 256), 50)
-    faceid_plain_ms = cuda_ms(lambda: CR.rasterize_faceid_reference(flat, bounds, 256, 256), 3)
+    faceid_args = (flat, bounds, 256, 256)
+    if not all(torch.equal(a, b) for a, b in zip(sync_staged[1](*faceid_args),
+                                                 CR.faceid_raster_kernel(*faceid_args))):
+        raise AssertionError("face-id kernel: plain staging and the ring disagree")
+    ring, sync = [], []
+    for _ in range(2):
+        ring.append(cuda_ms(lambda: CR.faceid_raster_kernel(*faceid_args), 200))
+        sync.append(cuda_ms(lambda: sync_staged[1](*faceid_args), 200))
+    faceid_ms = min(ring)
+    faceid_plain_ms = cuda_ms(lambda: CR.rasterize_faceid_reference(*faceid_args), 3)
     faceid_bound_ms, faceid_bound_by = kernel_bound_ms(flat, bounds, 256, 256, 0, 8)
     print(f"times on {card}: face-id raster kernel B=64 256x256 unculled (predict rend "
           f"bodies) {faceid_ms:.4f} ms (bound {faceid_bound_ms:.4f} ms by {faceid_bound_by}, "
           f"{100 * faceid_bound_ms / faceid_ms:.1f}% of it); plain version "
-          f"{faceid_plain_ms:.3f} ms")
+          f"{faceid_plain_ms:.3f} ms; bulk-copy ring {ring} ms, plain staging {sync} ms")
 
     infer_batch = 256
     model, _ = load_regressor_variables(PredictConfig(), assets, device=dev)
@@ -556,6 +597,7 @@ def main() -> int:
                 "images", lambda: predict_3d(predict_cfg, device="cuda"))
     tmp.cleanup()
 
+    print(card_line())
     print(json.dumps({"kernels": [{
         "name": "raster_packed", "route": "cuda",
         "source": "straps_tpu_torch/csrc/raster_packed.cu",
@@ -569,7 +611,6 @@ def main() -> int:
         "launches": faceid_launches, "max_abs_err": max(faceid_errs), "ms": faceid_ms,
         "plain_ms": faceid_plain_ms, "bound_ms": faceid_bound_ms,
         "bound_by": faceid_bound_by, "library_ms": None}]}))
-    print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,137 +2,83 @@
 //
 // Replaces the TPU kernel `_raster_kernel` of
 // straps_tpu/render/pallas_raster.py (launched by `rasterize_pallas`
-// without `face_attr`).  Same function: for every pixel centre
-// (x + 0.5, y + 0.5) and every face, evaluate three edge planes
-// `a*x + (b*y + c)`; the pixel is covered when all three are >= 0.  Among
-// the covered faces the pixel keeps the one of least depth (the depth
-// plane, evaluated the same way), and on a depth tie the smallest face id.
-// Outputs: the face id (-1 where background) and the exact f32 depth
-// (3.4e38 where background).
+// without `face_attr`).  Same function: per pixel centre, among the faces
+// that cover it, the one of least depth, and on a depth tie the smallest
+// face id.  Outputs: the face id (-1 where background) and the exact f32
+// depth (3.4e38 where background).  The TPU kernel takes, within a 128-face
+// chunk, the row min and its first argmin, and across chunks updates on a
+// strict `<`: the lexicographic minimum of (depth, face id).
 //
-// The TPU kernel takes, within a 128-face chunk, the row min and its first
-// argmin, and across chunks updates on a strict `<`.  That is the
-// lexicographic minimum of (depth, face id).  Here one thread owns one
-// pixel and visits the faces in increasing id, updating on a strict
-// `z < best_z`: the first face to reach the least depth keeps it, which is
-// the same minimum.
+// The design is the per-row span scan of raster_span.cuh.  A covered pixel
+// whose depth is below the background's (`z < 3.4e38`, false for NaN)
+// enters the tile's shared-memory keys by `atomicMin(unsigned long long*)`
+// on the 64-bit key (order(z) << 32) | face id, where order(z) maps the
+// float's bits to an unsigned integer of the same order (all bits flipped
+// for a negative, the sign bit set for a positive).  So the minimum key is
+// the (depth, smallest id) minimum of `rasterize_faceid_reference`, whatever
+// the order of the atomics, and the depth decodes from it exactly.  One
+// departure: -0.0 orders below +0.0, where the plain version calls them a
+// tie; no face reaches it, since a face with a vertex at depth <= 1e-6 is
+// killed (render/raster.py::prepare_face_planes).  The span search is held
+// to the dense coverage by
+// tests/test_torch_raster.py::test_span_search_matches_dense_coverage.
 //
-// What bounds it on this card: operations, not bytes.  Each input byte is
-// read once (planes, bounds) and each output written once (4 + 4 bytes a
-// pixel), some 80 MB for a batch of 64 SMPL meshes at 256x256, ~25 us of
-// HBM time; the edge planes of the (8-row strip, face chunk) pairs that
-// overlap need 6 FP32 operations per pixel and face (`a*x` and a sum per
-// edge; `b*y + c` depends only on the row and the face), and the depth
-// plane 4 more where the pixel is covered, some 3e10 operations for the
-// same batch unculled.  With FMA forbidden (below) each is one
-// instruction, at half the 67 TFLOP/s data-sheet rate: ~0.8 ms.  The
-// kernel below computes `b*y + c` at every pixel, 12 operations per pixel
-// and face, twice what the bound charges.
+// What bounds it on this card: bytes.  Each input byte is read once (planes,
+// bounds) and each output written once (4 + 4 bytes a pixel), ~76 MB for a
+// batch of 64 SMPL meshes at 256x256, ~23 us of HBM time; the work is 6
+// unfused FP32 operations per (row, face) pair inside each chunk's band
+// and 4 per covered pixel, ~0.1e9 for the same batch, ~3 us.
 //
-// What the design does about it:
-//   * one thread per pixel of a 32 x 8 tile, one warp per pixel row, so a
-//     warp shares y and each face's coefficients are a shared-memory
-//     broadcast;
-//   * the block skips every 128-face chunk whose [lo, hi) row band misses
-//     its 8 rows (the test is uniform across the block, so no divergence);
-//   * a chunk's planes (128 x 12 floats) are staged in shared memory once
-//     and read by all 256 threads;
-//   * the running (depth, face id) pair lives in registers and each output
-//     is written once; the ragged image edge is masked at the store.
-// Blocks are independent: the TPU kernel's sequential grid over strips
-// becomes a parallel grid, and its loop over chunks a loop inside the block.
-//
-// The plane evaluation rounds each product and sum separately
-// (__fmul_rn / __fadd_rn), in the order of the plain PyTorch version, so
-// that edge pixels agree with it exactly: nvcc would otherwise contract
-// a multiply and an add into one fused operation rounded once.
+// No tensor cores: the outputs must match the plain version bit for bit, so
+// each product and each sum is rounded on its own (nvcc would otherwise
+// contract a multiply and an add into one fused operation rounded once),
+// and no tensor-core path rounds that way; the work is a handful of scalar
+// operations per (row, face) pair in any case.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "raster_span.cuh"
 
 namespace {
 
-constexpr int kChunk = 128;        // faces per chunk (the bounds' chunk size)
-constexpr int kCols = 12;          // plane coefficients per face
-constexpr int kTileW = 32;
-constexpr int kTileH = 8;
-
-__device__ __forceinline__ float plane(float a, float b, float c, float px, float py) {
-  return __fadd_rn(__fmul_rn(a, px), __fadd_rn(__fmul_rn(b, py), c));
+__device__ __forceinline__ uint32_t order_bits(float z) {
+  const uint32_t u = __float_as_uint(z);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__global__ void __launch_bounds__(kTileW * kTileH)
-raster_faceid_kernel(const int32_t* __restrict__ bounds,
-                     const float* __restrict__ planes,
-                     int32_t* __restrict__ fid_out,
-                     float* __restrict__ z_out,
-                     int num_chunks, int img_h, int img_w, float bg_depth) {
-  __shared__ __align__(16) float s_planes[kChunk * kCols];
+__device__ __forceinline__ float order_to_float(uint32_t m) {
+  return __uint_as_float((m & 0x80000000u) ? (m ^ 0x80000000u) : ~m);
+}
 
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kTileH;
-  const int x = blockIdx.x * kTileW + threadIdx.x;
-  const int y = y0 + threadIdx.y;
-  const int tid = threadIdx.y * kTileW + threadIdx.x;
-  const float px = static_cast<float>(x) + 0.5f;
-  const float py = static_cast<float>(y) + 0.5f;
+struct FaceIdKeys {
+  using Key = unsigned long long;
+  static constexpr bool kHasAttr = false;
+  float bg_depth;
+  int32_t* fid_out;
+  float* z_out;
 
-  const int32_t* bb = bounds + static_cast<size_t>(b) * num_chunks * 2;
-  const float* pb = planes + static_cast<size_t>(b) * num_chunks * kChunk * kCols;
-  float best_z = bg_depth;
-  int32_t best_f = -1;
-
-  for (int c = 0; c < num_chunks; ++c) {
-    const int lo = bb[2 * c];
-    const int hi = bb[2 * c + 1];
-    if (!(lo < y0 + kTileH && hi > y0)) continue;   // block-uniform skip
-
-    __syncthreads();   // every thread is done with the previous chunk
-    const float4* src = reinterpret_cast<const float4*>(pb + static_cast<size_t>(c) * kChunk * kCols);
-    float4* dst = reinterpret_cast<float4*>(s_planes);
-    for (int i = tid; i < kChunk * kCols / 4; i += kTileW * kTileH) dst[i] = src[i];
-    __syncthreads();
-
-    const float4* sp = reinterpret_cast<const float4*>(s_planes);
-#pragma unroll 4
-    for (int f = 0; f < kChunk; ++f) {
-      const float4 p0 = sp[3 * f];       // e0x e0y e0c e1x
-      const float4 p1 = sp[3 * f + 1];   // e1y e1c e2x e2y
-      const float4 p2 = sp[3 * f + 2];   // e2c zx  zy  zc
-      const float e0 = plane(p0.x, p0.y, p0.z, px, py);
-      const float e1 = plane(p0.w, p1.x, p1.y, px, py);
-      const float e2 = plane(p1.z, p1.w, p2.x, px, py);
-      // All three >= 0, false for NaN: the NaN-propagating min of the
-      // reference followed by `>= 0`.
-      if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f) {
-        const float z = plane(p2.y, p2.z, p2.w, px, py);
-        if (z < best_z) {          // strict: the smaller id keeps a tie
-          best_z = z;
-          best_f = c * kChunk + f;
-        }
-      }
+  __device__ Key background() const {     // (bg_depth, -1)
+    return (static_cast<Key>(order_bits(bg_depth)) << 32) | 0xffffffffull;
+  }
+  __device__ void visit(Key* slot, float z, int face, int) const {
+    if (z < bg_depth) {
+      atomicMin(slot, (static_cast<Key>(order_bits(z)) << 32) | static_cast<uint32_t>(face));
     }
   }
-  if (x < img_w && y < img_h) {
-    const size_t o = (static_cast<size_t>(b) * img_h + y) * img_w + x;
-    fid_out[o] = best_f;
-    z_out[o] = best_z;
+  __device__ void store(size_t pixel, Key key) const {
+    fid_out[pixel] = static_cast<int32_t>(static_cast<uint32_t>(key));
+    z_out[pixel] = order_to_float(static_cast<uint32_t>(key >> 32));
   }
-}
+};
 
 }  // namespace
 
-// planes: (B, num_chunks * 128, 12) f32; bounds: (B, num_chunks, 2) int32;
-// fid_out: (B, img_h, img_w) int32; z_out: (B, img_h, img_w) f32.
-// Returns cudaGetLastError() after the launch (0 on success).
+// planes: (B, num_chunks * 128, 12) f32, 16-byte aligned; bounds:
+// (B, num_chunks, 2) int32; fid_out: (B, img_h, img_w) int32; z_out:
+// (B, img_h, img_w) f32.  Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int raster_faceid_launch(const int32_t* bounds, const float* planes,
                                     int32_t* fid_out, float* z_out,
                                     int batch, int num_chunks, int img_h,
                                     int img_w, float bg_depth, void* stream) {
-  if (batch == 0 || img_h == 0 || img_w == 0) return 0;
-  const dim3 block(kTileW, kTileH);
-  const dim3 grid((img_w + kTileW - 1) / kTileW, (img_h + kTileH - 1) / kTileH, batch);
-  raster_faceid_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      bounds, planes, fid_out, z_out, num_chunks, img_h, img_w, bg_depth);
-  return static_cast<int>(cudaGetLastError());
+  return span_raster::launch_span_raster(bounds, planes, nullptr, batch, num_chunks, img_h,
+                                         img_w, FaceIdKeys{bg_depth, fid_out, z_out}, stream);
 }

@@ -13,6 +13,10 @@ Counterparts of `rasterize_pallas` in `straps_tpu/render/pallas_raster.py`:
   the smallest face id on a depth tie, and its exact depth (-1 and 3.4e38
   where background).  Kernel: `csrc/raster_faceid.cu`.
 
+Both kernels are per-row span scans over one shared header,
+`csrc/raster_span.cuh`; the plain versions here evaluate every pixel of
+every chunk's band densely and are the definition both are held to.
+
 Each takes the tensor's device as the rule: a CUDA tensor goes through the
 kernel (built with nvcc at first use) or the call raises; a CPU tensor goes
 through the plain version.
@@ -21,11 +25,12 @@ through the plain version.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,22 +67,45 @@ def _find_nvcc() -> str:
     return found
 
 
-def build_library(source: str) -> str:
-    """Compile one `.cu` file of `csrc/` into `_build/` unless a library
-    built from the same source and flags is there; nvcc's report
-    (registers, shared memory, spills) is kept beside it as
-    `<library>.log`.  Returns the library's path; raises RuntimeError when
-    nvcc fails."""
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+def _local_includes(source: str) -> List[str]:
+    """`source` and every file of its directory that it includes with
+    `#include "..."`, directly or through another such file."""
+    found, todo = [], [os.path.abspath(source)]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        with open(path) as f:
+            names = re.findall(r'^\s*#\s*include\s*"([^"]+)"', f.read(), re.MULTILINE)
+        todo += [os.path.join(os.path.dirname(path), n) for n in names]
+    return found
+
+
+def source_digest(source: str, flags: Sequence[str] = ()) -> str:
+    """Hash of `source`, the headers of `csrc/` it includes and the nvcc
+    flags: the key of a built library."""
+    digest = hashlib.sha256(" ".join((*NVCC_FLAGS, *flags)).encode())
+    for path in _local_includes(source):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return digest.hexdigest()[:16]
+
+
+def build_library(source: str, flags: Sequence[str] = ()) -> str:
+    """Compile one `.cu` file of `csrc/` (with extra nvcc `flags`) into
+    `_build/` unless a library built from the same source, headers and
+    flags is there; nvcc's report (registers, shared memory, spills) is
+    kept beside it as `<library>.log`.  Returns the library's path; raises
+    RuntimeError when nvcc fails."""
     stem = os.path.splitext(os.path.basename(source))[0]
-    lib_path = os.path.join(_BUILD_DIR, f"{stem}_{digest.hexdigest()[:16]}.so")
+    lib_path = os.path.join(_BUILD_DIR, f"{stem}_{source_digest(source, flags)}.so")
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(_BUILD_DIR, exist_ok=True)
     fd, tmp_path = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp_path, source]
+    cmd = [_find_nvcc(), *NVCC_FLAGS, *flags, "-Xptxas", "-v", "-o", tmp_path, source]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp_path)
@@ -90,12 +118,13 @@ def build_library(source: str) -> str:
 
 
 class _RasterKernel:
-    """One kernel library built from `csrc/<name>.cu`, its C entry point
-    `<name>_launch` and its launch count."""
+    """One kernel library built from `csrc/<name>.cu` with extra nvcc
+    `flags`, its C entry point `<name>_launch` and its launch count."""
 
-    def __init__(self, name: str, argtypes):
+    def __init__(self, name: str, argtypes, flags: Sequence[str] = ()):
         self.name = name
         self.source = os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
+        self.flags = tuple(flags)
         self.launches = 0
         self._argtypes = argtypes
         self._fn = None
@@ -105,7 +134,8 @@ class _RasterKernel:
         """The loaded entry point, built at first use."""
         with self._lock:
             if self._fn is None:
-                fn = getattr(ctypes.CDLL(build_library(self.source)), f"{self.name}_launch")
+                fn = getattr(ctypes.CDLL(build_library(self.source, self.flags)),
+                             f"{self.name}_launch")
                 fn.argtypes = self._argtypes
                 fn.restype = ctypes.c_int
                 self._fn = fn
@@ -114,8 +144,9 @@ class _RasterKernel:
     def _check(self, img_h: int, img_w: int, **inputs):
         """Raise ValueError unless `inputs` ({name: (tensor, dtype, shape)},
         `planes` among them) are contiguous, of their dtype and shape, on
-        one CUDA device, with faces padded to FACE_CHUNK and 16-byte
-        aligned planes."""
+        one CUDA device, with faces padded to FACE_CHUNK and the planes
+        and attributes 16-byte aligned (the kernels stage them with bulk
+        copies)."""
         planes = inputs["planes"][0]
         B, Fp = planes.shape[:2]
         dev = planes.device
@@ -126,9 +157,10 @@ class _RasterKernel:
                     f"{name}: want contiguous {dtype} {shape} on {dev}, got "
                     f"{t.dtype} {tuple(t.shape)} on {t.device} "
                     f"(contiguous={t.is_contiguous()})")
-        if dev.type != "cuda" or Fp % FACE_CHUNK or planes.data_ptr() % 16:
+        misaligned = any(inputs[n][0].data_ptr() % 16 for n in ("planes", "attr") if n in inputs)
+        if dev.type != "cuda" or Fp % FACE_CHUNK or misaligned:
             raise ValueError(f"kernel needs CUDA tensors, faces padded to "
-                             f"{FACE_CHUNK} and 16-byte aligned planes")
+                             f"{FACE_CHUNK} and 16-byte aligned planes and attributes")
         if not (0 < img_h and 0 < img_w and B < 65536):
             raise ValueError(f"bad launch shape B={B} H={img_h} W={img_w}")
 
@@ -142,9 +174,9 @@ class _RasterKernel:
 
 
 class _PackedRasterKernel(_RasterKernel):
-    def __init__(self):
+    def __init__(self, flags: Sequence[str] = ()):
         super().__init__("raster_packed",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p], flags)
 
     def __call__(self, planes: torch.Tensor, bounds: torch.Tensor,
                  attr: torch.Tensor, img_h: int, img_w: int) -> torch.Tensor:
@@ -164,10 +196,10 @@ class _PackedRasterKernel(_RasterKernel):
 
 
 class _FaceIdRasterKernel(_RasterKernel):
-    def __init__(self):
+    def __init__(self, flags: Sequence[str] = ()):
         super().__init__("raster_faceid",
                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                         + [ctypes.c_float, ctypes.c_void_p])
+                         + [ctypes.c_float, ctypes.c_void_p], flags)
 
     def __call__(self, planes: torch.Tensor, bounds: torch.Tensor,
                  img_h: int, img_w: int) -> Tuple[torch.Tensor, torch.Tensor]:

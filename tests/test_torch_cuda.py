@@ -3,7 +3,10 @@
 Skipped where CUDA is absent.  On an H100:
 `python -m pytest tests/test_torch_cuda.py -m cuda`.  Both sides round
 every product and sum separately, so the packed keys, the face ids and
-the depths agree exactly.
+the depths agree exactly: on SMPL bodies at 64², 250² and 512² (two
+256-column tiles), and on the scenes of `tests/raster_scenes.py` (wide
+triangles across tile edges, ragged widths, near-horizontal edges, vertices
+on pixel centres, special planes, a coplanar tie across two chunks).
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ from straps_tpu_torch.render import raster as TR
 from straps_tpu_torch.render.renderer import render_rgb, render_silhouette
 from straps_tpu_torch.smpl.assets import load_synthetic_assets
 from straps_tpu_torch.smpl.model import smpl_forward_axis_angle
+from raster_scenes import KERNEL_SCENES
 
 pytestmark = pytest.mark.cuda
 
@@ -48,7 +52,7 @@ def _smpl_inputs(dev, img_wh, B=4, cull=True):
     return flat, bounds.contiguous(), attr
 
 
-@pytest.mark.parametrize("img_wh,cull", [(64, True), (64, False), (250, True)])
+@pytest.mark.parametrize("img_wh,cull", [(64, True), (64, False), (250, True), (512, True)])
 def test_kernel_matches_plain(cuda, img_wh, cull):
     flat, bounds, attr = _smpl_inputs(cuda, img_wh, cull=cull)
     before = CR.packed_raster_kernel.launches
@@ -73,7 +77,8 @@ def test_render_silhouette_goes_through_kernel(cuda):
     np.testing.assert_array_equal(sil.cpu().numpy(), sil_cpu.numpy())
 
 
-@pytest.mark.parametrize("img_wh,cull", [(64, True), (64, False), (250, False)])
+@pytest.mark.parametrize("img_wh,cull", [(64, True), (64, False), (250, False),
+                                         (512, False)])
 def test_faceid_kernel_matches_plain(cuda, img_wh, cull):
     flat, bounds, _ = _smpl_inputs(cuda, img_wh, cull=cull)
     before = CR.faceid_raster_kernel.launches
@@ -84,6 +89,21 @@ def test_faceid_kernel_matches_plain(cuda, img_wh, cull):
     assert (fid_p >= 0).float().mean() > 0.02
     assert torch.equal(fid, fid_p) and torch.equal(depth, depth_p)
     assert torch.equal(depth == CR.FACEID_BG_DEPTH, fid < 0)
+
+
+@pytest.mark.parametrize("scene", list(KERNEL_SCENES))
+def test_kernels_match_plain_on_span_scenes(cuda, scene):
+    flat, bounds, attr, img_h, img_w = (t.to(cuda) if torch.is_tensor(t) else t
+                                        for t in KERNEL_SCENES[scene]())
+    key = CR.packed_raster_kernel(flat, bounds, attr, img_h, img_w)
+    fid, depth = CR.faceid_raster_kernel(flat, bounds, img_h, img_w)
+    torch.cuda.synchronize()
+    fid_p, depth_p = CR.rasterize_faceid_reference(flat, bounds, img_h, img_w)
+    assert (fid_p >= 0).any()
+    assert torch.equal(key, CR.rasterize_packed_reference(flat, bounds, attr, img_h, img_w))
+    assert torch.equal(fid, fid_p) and torch.equal(depth, depth_p)
+    if scene.startswith("coplanar tie"):
+        assert set(fid.unique().tolist()) == {-1, 3, 5}
 
 
 def test_render_rgb_goes_through_faceid_kernel(cuda):

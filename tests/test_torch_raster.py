@@ -6,7 +6,9 @@ run in interpret mode, with the bounds of `tests/test_render.py`: part map
 and face ids exact on the two-triangle scene (depth rtol 1e-5), part
 mismatch < 0.002 on the synthetic SMPL mesh (packed depth within 8 ulps).
 Plane preparation and the chunk row bounds are held exactly; the plain
-`rasterize_xla` exactly.
+`rasterize_xla` exactly.  A float32 mirror of the CUDA kernels' per-row
+span search (`csrc/raster_span.cuh`) is held to the plain versions' dense
+coverage bit for bit.
 """
 
 import jax.numpy as jnp
@@ -23,6 +25,7 @@ from straps_tpu.geometry import rodrigues
 from straps_tpu_torch.render import cuda_raster as CR
 from straps_tpu_torch.render import raster as TR
 from straps_tpu_torch.render import renderer as TRR
+from raster_scenes import KERNEL_SCENES
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -192,6 +195,23 @@ def test_kernel_wrapper_rejects_cpu_and_bad_inputs():
     assert CR.packed_raster_kernel.launches == 0
 
 
+def test_library_key_covers_included_headers(tmp_path):
+    """A kernel library is rebuilt when a header of `csrc/` it includes,
+    directly or not, or an nvcc flag changes; the kernels' own sources
+    include the shared span header."""
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <stdint.h>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    src = str(tmp_path / "k.cu")
+    key = CR.source_digest(src)
+    assert CR.source_digest(src) == key and CR.source_digest(src, ("-DX",)) != key
+    (tmp_path / "b.cuh").write_text("// b, changed\n")
+    assert CR.source_digest(src) != key
+    for kernel in CR.KERNELS:
+        assert [p.rsplit("/", 1)[-1] for p in CR._local_includes(kernel.source)] == \
+            [f"{kernel.name}.cu", "raster_span.cuh"]
+
+
 def test_faceid_triangles_vs_pallas_interpret():
     screen, z, faces = make_triangle_scene()
     pj, bj = _jax_planes(screen[None], z[None], faces, cull=False)
@@ -292,3 +312,108 @@ def test_faceid_rasteriser_device_rule_and_wrapper_checks():
     with pytest.raises(ValueError, match="device meta"):
         CR.rasterize_faceid(torch.zeros((1, 2, 4, 3), device="meta"), bounds, 8, 8)
     assert CR.faceid_raster_kernel.launches == 0
+
+
+# The kernels' span search (`csrc/raster_span.cuh`), mirrored in numpy
+# float32 with each product and sum rounded on its own.  Its only caller is
+# the test below.
+_TILE_W = 256          # columns of one kernel block
+
+
+def _passes(a, r, x):
+    return (a * (x.astype(np.float32) + np.float32(0.5)) + r) >= 0
+
+
+def _walk(s, step_while, delta):
+    """Move each s by `delta` while `step_while(s)`: the kernel's
+    neighbour steps, at most a tile's width of them."""
+    for _ in range(_TILE_W + 1):
+        step = step_while(s)
+        if not step.any():
+            return s
+        s = s + delta * step
+    raise AssertionError("walk longer than a tile")
+
+
+def _clip_edge(a, r, k, m, est_shift=0.0):
+    """`clip_edge` on arrays: narrow [k, m) to the pixels passing (a, r).
+    The kernel's estimate is __fdividef(-r, a) (within 2 ulps); here the
+    exact quotient, moved by `est_shift` pixels to show that the walk, not
+    the estimate, decides the span."""
+    with np.errstate(all="ignore"):
+        est = (-r / a) - np.float32(0.5) + np.float32(est_shift)
+        pos, neg = (a > 0) & (r == r), (a < 0) & (r == r)
+        start = np.where(pos, np.ceil(est), np.floor(est) + np.float32(1.0))
+        s = np.fmin(np.fmax(start, k), m).astype(np.int64)
+        s = _walk(s, lambda s: pos & (s > k) & _passes(a, r, s - 1), -1)
+        s = _walk(s, lambda s: pos & (s < m) & ~_passes(a, r, s), 1)
+        s = _walk(s, lambda s: neg & (s < m) & _passes(a, r, s), 1)
+        s = _walk(s, lambda s: neg & (s > k) & ~_passes(a, r, s - 1), -1)
+        none = ~pos & ~neg & ~((a == 0) & (r >= 0))
+    k2 = np.where(pos, s, k)
+    m2 = np.where(neg, s, np.where(none, k2, m))
+    return k2, m2
+
+
+def _spans(p, img_h, img_w, est_shift):
+    """(B, F, 12) planes -> [(x0, x1, k, m)] per x-tile, k and m (B, F, H):
+    each face's covered span [k, m) of each row, found as the kernel
+    finds it."""
+    p = p.numpy()
+    py = np.arange(img_h, dtype=np.float32)[None, None, :] + np.float32(0.5)
+    tiles = []
+    for x0 in range(0, img_w, _TILE_W):
+        x1 = min(x0 + _TILE_W, img_w)
+        k = np.full(p.shape[:2] + (img_h,), x0, np.int64)
+        m = np.full_like(k, x1)
+        for e in range(3):
+            a = p[:, :, 3 * e, None]
+            r = p[:, :, 3 * e + 1, None] * py + p[:, :, 3 * e + 2, None]
+            live = k < m
+            k2, m2 = _clip_edge(np.broadcast_to(a, r.shape), r, k, m, est_shift)
+            k, m = np.where(live, k2, k), np.where(live, m2, m)
+        tiles.append((x0, x1, k, m))
+    return tiles
+
+
+def _span_mask(tiles, faces):
+    """The (B, C, H, W) coverage of the spans of faces `faces` (a slice)."""
+    return np.concatenate([(np.arange(x0, x1) >= k[:, faces, :, None])
+                           & (np.arange(x0, x1) < m[:, faces, :, None])
+                           for x0, x1, k, m in tiles], axis=-1)
+
+
+def _dense_coverage(p, img_h, img_w):
+    """The plain versions' coverage of (B, C, 12) planes, every row."""
+    xs = torch.arange(img_w, dtype=torch.float32) + 0.5
+    y = (torch.arange(img_h, dtype=torch.float32) + 0.5)[:, None]
+    e = [CR._plane_eval(p, k, xs, y) for k in (0, 3, 6)]
+    return (torch.minimum(torch.minimum(e[0], e[1]), e[2]) >= 0).numpy()
+
+
+_SPAN_SCENES = ["smpl culled", "smpl unculled", *KERNEL_SCENES]
+
+
+@pytest.mark.parametrize("scene", _SPAN_SCENES)
+def test_span_search_matches_dense_coverage(smpl_scenes, scene):
+    """Each face's span per row, found from an estimate and exact steps,
+    is exactly the set of pixels the dense evaluation covers: SMPL at 64²
+    culled and unculled, triangles wider than 32 and 256 pixels across
+    x-tiles, near-horizontal edges, vertices on pixel centres, a = +-0,
+    dead faces, NaN and +-inf coefficients, ragged widths; with the
+    estimate as the kernel makes it and 3.7 pixels off."""
+    if scene.startswith("smpl"):
+        assets, _, _, _, screen, z = smpl_scenes
+        pt, _ = _torch_planes(screen, z, np.asarray(assets.faces), scene == "smpl culled")
+        flat, img_h, img_w = CR.flatten_planes(pt), 64, 64
+    else:
+        flat, _, _, img_h, img_w = KERNEL_SCENES[scene]()
+    spans = [_spans(flat, img_h, img_w, shift) for shift in (0.0, 3.7)]
+    covered = 0
+    for c0 in range(0, flat.shape[1], CR.FACE_CHUNK):
+        faces = slice(c0, c0 + CR.FACE_CHUNK)
+        want = _dense_coverage(flat[:, faces], img_h, img_w)
+        covered += int(want.sum())
+        for shift, tiles in zip((0.0, 3.7), spans):
+            assert np.array_equal(_span_mask(tiles, faces), want), (c0, shift)
+    assert covered > 0
