@@ -6,9 +6,8 @@
 Phases, each of which raises on failure:
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles both rasteriser kernels from `straps_tpu_torch/csrc`
-     (each `.cu` with the shared `raster_span.cuh`), and each once more
-     with plain staging in place of the bulk-copy ring for the timing of
-     phase 5, one nvcc each, all started together;
+     (each `.cu` with the shared `raster_span.cuh`), one nvcc each,
+     started together;
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card, bit for bit (packed keys; face ids and depths): two triangles;
      the synthetic SMPL mesh at 256x256, B=8 and B=32, culled and not, a
@@ -34,9 +33,9 @@ Phases, each of which raises on failure:
        the same predict at 64x64 in float32 on the card and on the CPU,
        which must agree;
   5. times: each kernel at B=64, 256x256 (packed: culled eval bodies;
-     face-id: unculled, the predict renders' own bodies), beside its bound,
-     its plain-staging build and its plain version; the evaluation's and
-     the predict's wall time; proxy -> SMPL inferences/s at batch 256.
+     face-id: unculled, the predict renders' own bodies), beside its bound
+     and its plain version; the evaluation's and the predict's wall time;
+     proxy -> SMPL inferences/s at batch 256.
 The card's name and power limit come two lines before the last, the
 `kernels` JSON on the line before the last, the result JSON last.
 Exits non-zero without a card, and outside a checkout of the repository.
@@ -64,8 +63,6 @@ H100_HBM_BYTES_S = 3.35e12
 OPS_PER_PIXEL_FACE = 6        # 3 edge planes x (a*x, + (b*y + c))
 OPS_PER_ROW_FACE = 6          # 3 edge planes x (b*y, + c): shared by a pixel row
 OPS_PER_COVERED = 4           # the depth plane, on covered pixels only
-# Build flag of the kernels' plain-staging variant (csrc/raster_span.cuh).
-SYNC_STAGING = ("-DRASTER_SPAN_SYNC_STAGING",)
 
 
 def card_line() -> str:
@@ -194,8 +191,9 @@ def kernel_bound_ms(flat, bounds, img_h, img_w, other_in_bytes, out_bytes_per_pi
     operations are what the span kernels cannot skip: the three edges' row
     terms `b*y + c` of every (row, face) pair inside each chunk's own band,
     and the depth plane of every pair where the pixel is covered.  The
-    dense count of PRs 1-2 (every pixel-face pair of every (8-row strip,
-    chunk) whose band overlaps the strip) is printed the line before."""
+    dense count of the earlier per-pixel kernels (every pixel-face pair of
+    every (8-row strip, chunk) whose band overlaps the strip) is printed
+    the line before."""
     from straps_tpu_torch.render import cuda_raster as CR
 
     B = flat.shape[0]
@@ -213,7 +211,7 @@ def kernel_bound_ms(flat, bounds, img_h, img_w, other_in_bytes, out_bytes_per_pi
     dense_ops = (pixel_faces * OPS_PER_PIXEL_FACE + strip_row_faces * OPS_PER_ROW_FACE
                  + covered * OPS_PER_COVERED)
     t_dense = dense_ops / H100_FP32_UNFUSED_OPS * 1e3
-    print(f"kernel bound, dense count of PRs 1-2: {dense_ops} unfused FP32 ops "
+    print(f"kernel bound, dense count of the per-pixel kernels: {dense_ops} unfused FP32 ops "
           f"({pixel_faces} pixel-face pairs in {int(overlap.sum())} strip-chunk overlaps "
           f"x {OPS_PER_PIXEL_FACE}, {strip_row_faces} row-face pairs x {OPS_PER_ROW_FACE}, "
           f"{covered} covered x {OPS_PER_COVERED}) -> {t_dense:.4f} ms; bound "
@@ -378,13 +376,11 @@ def main() -> int:
 
     dev = resolve_device("cuda")
 
-    # 2. Build: one nvcc per kernel library, all started together.
-    sync_staged = (CR._PackedRasterKernel(SYNC_STAGING), CR._FaceIdRasterKernel(SYNC_STAGING))
-    builds = CR.KERNELS + sync_staged
+    # 2. Build: one nvcc per kernel source, all started together.
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(builds)) as pool:
-        libs = list(pool.map(lambda k: CR.build_library(k.source, k.flags), builds))
-    for kernel in builds:
+    with ThreadPoolExecutor(len(CR.KERNELS)) as pool:
+        libs = list(pool.map(lambda k: CR.build_library(k.source), CR.KERNELS))
+    for kernel in CR.KERNELS:
         kernel.function()
     print(f"build: {', '.join(libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
@@ -544,39 +540,23 @@ def main() -> int:
     if worst_npy > 1e-4 or moved >= 0.002:
         raise AssertionError("predict on the card disagrees with the CPU")
 
-    # 5. Times.  Each kernel beside its plain-staging build, in turns.
+    # 5. Times.
     flat, bounds, attr = smpl_kernel_inputs(assets, 256, 64, seed=5)
-    packed_args = (flat, bounds, attr, 256, 256)
-    if not torch.equal(sync_staged[0](*packed_args), CR.packed_raster_kernel(*packed_args)):
-        raise AssertionError("packed kernel: plain staging and the ring disagree")
-    ring, sync = [], []
-    for _ in range(2):
-        ring.append(cuda_ms(lambda: CR.packed_raster_kernel(*packed_args), 200))
-        sync.append(cuda_ms(lambda: sync_staged[0](*packed_args), 200))
-    kernel_ms = min(ring)
-    plain_ms = cuda_ms(lambda: CR.rasterize_packed_reference(*packed_args), 3)
+    kernel_ms = cuda_ms(lambda: CR.packed_raster_kernel(flat, bounds, attr, 256, 256), 200)
+    plain_ms = cuda_ms(lambda: CR.rasterize_packed_reference(flat, bounds, attr, 256, 256), 3)
     bound_ms, bound_by = kernel_bound_ms(flat, bounds, 256, 256, attr.numel() * 4, 4)
     print(f"times on {card}: packed raster kernel B=64 256x256 culled "
           f"{kernel_ms:.4f} ms (bound {bound_ms:.4f} ms by {bound_by}, "
-          f"{100 * bound_ms / kernel_ms:.1f}% of it); plain version {plain_ms:.3f} ms; "
-          f"bulk-copy ring {ring} ms, plain staging {sync} ms")
+          f"{100 * bound_ms / kernel_ms:.1f}% of it); plain version {plain_ms:.3f} ms")
 
     flat, bounds = rend_in
-    faceid_args = (flat, bounds, 256, 256)
-    if not all(torch.equal(a, b) for a, b in zip(sync_staged[1](*faceid_args),
-                                                 CR.faceid_raster_kernel(*faceid_args))):
-        raise AssertionError("face-id kernel: plain staging and the ring disagree")
-    ring, sync = [], []
-    for _ in range(2):
-        ring.append(cuda_ms(lambda: CR.faceid_raster_kernel(*faceid_args), 200))
-        sync.append(cuda_ms(lambda: sync_staged[1](*faceid_args), 200))
-    faceid_ms = min(ring)
-    faceid_plain_ms = cuda_ms(lambda: CR.rasterize_faceid_reference(*faceid_args), 3)
+    faceid_ms = cuda_ms(lambda: CR.faceid_raster_kernel(flat, bounds, 256, 256), 200)
+    faceid_plain_ms = cuda_ms(lambda: CR.rasterize_faceid_reference(flat, bounds, 256, 256), 3)
     faceid_bound_ms, faceid_bound_by = kernel_bound_ms(flat, bounds, 256, 256, 0, 8)
     print(f"times on {card}: face-id raster kernel B=64 256x256 unculled (predict rend "
           f"bodies) {faceid_ms:.4f} ms (bound {faceid_bound_ms:.4f} ms by {faceid_bound_by}, "
           f"{100 * faceid_bound_ms / faceid_ms:.1f}% of it); plain version "
-          f"{faceid_plain_ms:.3f} ms; bulk-copy ring {ring} ms, plain staging {sync} ms")
+          f"{faceid_plain_ms:.3f} ms")
 
     infer_batch = 256
     model, _ = load_regressor_variables(PredictConfig(), assets, device=dev)

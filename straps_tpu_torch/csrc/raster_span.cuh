@@ -34,7 +34,8 @@
 //     of attributes for the packed kernel) come through a two-slot ring in
 //     shared memory, filled by the bulk copy engine (cp.async.bulk, TMA's
 //     1-D copy) completing on an mbarrier, so the next chunk's copy is in
-//     flight while the block works on the current one;
+//     flight while the block works on the current one (12-14% faster than
+//     staging with plain loads and a __syncthreads(), PERF.md);
 //   * one warp per pixel row; a row outside the chunk's band is skipped
 //     (the test is uniform across the warp); each lane takes four faces of
 //     the chunk, computes the three edge row terms and the depth row term
@@ -59,14 +60,6 @@ constexpr int kStripRows = 8;      // pixel rows per block, one warp each
 constexpr int kTileW = 256;        // columns per block
 constexpr int kThreads = 32 * kStripRows;
 constexpr uint32_t kPlaneBytes = kChunk * kCols * sizeof(float);
-// Built with -DRASTER_SPAN_SYNC_STAGING, the block stages each chunk with
-// plain loads by all threads and a __syncthreads() instead of the ring
-// (chip_smoke.py times both).
-#ifdef RASTER_SPAN_SYNC_STAGING
-constexpr bool kBulkRing = false;
-#else
-constexpr bool kBulkRing = true;
-#endif
 
 // `b*py + c`, the part of a plane that a pixel row shares.
 __device__ __forceinline__ float row_term(float b, float c, float py) {
@@ -214,23 +207,14 @@ span_raster_kernel(const int32_t* __restrict__ bounds, const float* __restrict__
     }
     __syncthreads();
     const int n = s_count;
-    if (kBulkRing && tid == 0) {
+    if (tid == 0) {
       for (int i = 0; i < min(n, 2); ++i) stage(i, i);
     }
 
     for (int i = 0; i < n; ++i) {
-      const int slot = kBulkRing ? i & 1 : 0;
-      if (kBulkRing) {
-        barrier_wait(&s_bar[slot], (parity >> slot) & 1u);
-        parity ^= 1u << slot;
-      } else {                            // every thread copies a share, then all wait
-        const float4* src = reinterpret_cast<const float4*>(
-            pb + static_cast<size_t>(s_chunk[i]) * kChunk * kCols);
-        for (int j = tid; j < kChunk * kCols / 4; j += kThreads)
-          reinterpret_cast<float4*>(s_planes[0])[j] = src[j];
-        if (Keys::kHasAttr && tid < kChunk) s_attr[0][tid] = attr[s_chunk[i] * kChunk + tid];
-        __syncthreads();
-      }
+      const int slot = i & 1;
+      barrier_wait(&s_bar[slot], (parity >> slot) & 1u);
+      parity ^= 1u << slot;
       if (y >= s_lo[i] && y < s_hi[i] && y < img_h) {   // uniform across the warp
         const float4* sp = reinterpret_cast<const float4*>(s_planes[slot]);
         const int face0 = s_chunk[i] * kChunk;
@@ -252,7 +236,7 @@ span_raster_kernel(const int32_t* __restrict__ bounds, const float* __restrict__
         }
       }
       __syncthreads();                    // every warp is done with this slot
-      if (kBulkRing && tid == 0 && i + 2 < n) stage(slot, i + 2);
+      if (tid == 0 && i + 2 < n) stage(slot, i + 2);
     }
     __syncthreads();                      // the list is rewritten next round
   }

@@ -30,7 +30,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import List, Sequence, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -82,30 +82,30 @@ def _local_includes(source: str) -> List[str]:
     return found
 
 
-def source_digest(source: str, flags: Sequence[str] = ()) -> str:
+def source_digest(source: str) -> str:
     """Hash of `source`, the headers of `csrc/` it includes and the nvcc
     flags: the key of a built library."""
-    digest = hashlib.sha256(" ".join((*NVCC_FLAGS, *flags)).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in _local_includes(source):
         with open(path, "rb") as f:
             digest.update(f.read())
     return digest.hexdigest()[:16]
 
 
-def build_library(source: str, flags: Sequence[str] = ()) -> str:
-    """Compile one `.cu` file of `csrc/` (with extra nvcc `flags`) into
-    `_build/` unless a library built from the same source, headers and
-    flags is there; nvcc's report (registers, shared memory, spills) is
-    kept beside it as `<library>.log`.  Returns the library's path; raises
-    RuntimeError when nvcc fails."""
+def build_library(source: str) -> str:
+    """Compile one `.cu` file of `csrc/` into `_build/` unless a library
+    built from the same source, headers and flags is there; nvcc's report
+    (registers, shared memory, spills) is kept beside it as
+    `<library>.log`.  Returns the library's path; raises RuntimeError when
+    nvcc fails."""
     stem = os.path.splitext(os.path.basename(source))[0]
-    lib_path = os.path.join(_BUILD_DIR, f"{stem}_{source_digest(source, flags)}.so")
+    lib_path = os.path.join(_BUILD_DIR, f"{stem}_{source_digest(source)}.so")
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(_BUILD_DIR, exist_ok=True)
     fd, tmp_path = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
-    cmd = [_find_nvcc(), *NVCC_FLAGS, *flags, "-Xptxas", "-v", "-o", tmp_path, source]
+    cmd = [_find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp_path, source]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp_path)
@@ -118,13 +118,12 @@ def build_library(source: str, flags: Sequence[str] = ()) -> str:
 
 
 class _RasterKernel:
-    """One kernel library built from `csrc/<name>.cu` with extra nvcc
-    `flags`, its C entry point `<name>_launch` and its launch count."""
+    """One kernel library built from `csrc/<name>.cu`, its C entry point
+    `<name>_launch` and its launch count."""
 
-    def __init__(self, name: str, argtypes, flags: Sequence[str] = ()):
+    def __init__(self, name: str, argtypes):
         self.name = name
         self.source = os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
-        self.flags = tuple(flags)
         self.launches = 0
         self._argtypes = argtypes
         self._fn = None
@@ -134,8 +133,7 @@ class _RasterKernel:
         """The loaded entry point, built at first use."""
         with self._lock:
             if self._fn is None:
-                fn = getattr(ctypes.CDLL(build_library(self.source, self.flags)),
-                             f"{self.name}_launch")
+                fn = getattr(ctypes.CDLL(build_library(self.source)), f"{self.name}_launch")
                 fn.argtypes = self._argtypes
                 fn.restype = ctypes.c_int
                 self._fn = fn
@@ -174,9 +172,9 @@ class _RasterKernel:
 
 
 class _PackedRasterKernel(_RasterKernel):
-    def __init__(self, flags: Sequence[str] = ()):
+    def __init__(self):
         super().__init__("raster_packed",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p], flags)
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
     def __call__(self, planes: torch.Tensor, bounds: torch.Tensor,
                  attr: torch.Tensor, img_h: int, img_w: int) -> torch.Tensor:
@@ -196,10 +194,10 @@ class _PackedRasterKernel(_RasterKernel):
 
 
 class _FaceIdRasterKernel(_RasterKernel):
-    def __init__(self, flags: Sequence[str] = ()):
+    def __init__(self):
         super().__init__("raster_faceid",
                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                         + [ctypes.c_float, ctypes.c_void_p], flags)
+                         + [ctypes.c_float, ctypes.c_void_p])
 
     def __call__(self, planes: torch.Tensor, bounds: torch.Tensor,
                  img_h: int, img_w: int) -> Tuple[torch.Tensor, torch.Tensor]:
