@@ -32,10 +32,27 @@ Phases, each of which raises on failure:
        the inputs of those two launches (B=64, 256x256, unculled); then
        the same predict at 64x64 in float32 on the card and on the CPU,
        which must agree;
+     - the training CLI (`run_train --synthetic-data`) for one epoch at
+       the released configuration (batch 140, 256x256, ResNet-18 + IEF,
+       bfloat16 encoder, every augmentation on): 4 train and 2 validation
+       steps, so exactly 6 packed-kernel launches; losses and metrics
+       finite, the checkpoint written and read back with
+       `weights_only=True`, the loss log-variances moved; the packed kernel
+       held against its plain version, bit for bit, on the render of one
+       augmented training batch (B=140, jittered cameras, vertex noise,
+       back faces culled); then one train step at 64x64, B=8, float32 on
+       the card and on the CPU from the same state and draws, which must
+       agree (loss, gradients, BatchNorm running statistics);
   5. times: each kernel at B=64, 256x256 (packed: culled eval bodies;
      face-id: unculled, the predict renders' own bodies), beside its bound
      and its plain version; the evaluation's and the predict's wall time;
-     proxy -> SMPL inferences/s at batch 256.
+     proxy -> SMPL inferences/s at batch 256; a warm train step at batch
+     140 (median of 12 after 3 warm-up steps), split into the synthetic
+     batch and the forward/backward/update, three steps under the
+     profiler, and the packed kernel on the training bodies beside its
+     bound.  The `kernels` line gives the packed kernel's time on the
+     training bodies and its launches on the evaluation and training
+     paths.
 The card's name and power limit come two lines before the last, the
 `kernels` JSON on the line before the last, the result JSON last.
 Exits non-zero without a card, and outside a checkout of the repository.
@@ -290,6 +307,92 @@ def decode_png(path):
     return rows[:, 1:].reshape(h, w, channels)
 
 
+def training_kernel_inputs(assets, cfg, seed):
+    """The packed kernel's inputs (flat planes, int32 bounds, attributes)
+    as `generate_synthetic_batch` gives them on one augmented training
+    batch of `cfg.batch_size` seeded bodies: the arguments it hands the
+    rasteriser, recorded on their way in."""
+    from straps_tpu_torch.render import cuda_raster as CR
+    from straps_tpu_torch.render import renderer
+    from straps_tpu_torch.train.synthetic import draw_synthetic, generate_synthetic_batch
+
+    dev = assets.device
+    B = cfg.batch_size
+    g = torch.Generator().manual_seed(seed)
+    pose = (torch.randn(B, 72, generator=g) * 0.2).to(dev)
+    shape = (torch.randn(B, 10, generator=g) * 0.5).to(dev)
+    draws = draw_synthetic(torch.Generator(device=dev).manual_seed(seed), B,
+                           assets.num_verts, cfg, dev)
+    seen = []
+    real = renderer.rasterize_packed
+
+    def record(planes, bounds, face_attr, img_h, img_w):
+        seen.append((planes, bounds, face_attr))
+        return real(planes, bounds, face_attr, img_h, img_w)
+    renderer.rasterize_packed = record
+    try:
+        generate_synthetic_batch(draws, pose, shape, assets, cfg)
+    finally:
+        renderer.rasterize_packed = real
+    (planes, bounds, face_attr), = seen
+    flat, attr = CR.pack_planes(planes, face_attr)
+    return flat, bounds.to(torch.int32).contiguous(), attr
+
+
+def draws_to(draws, device):
+    """A `SyntheticDraws` with every tensor moved to `device`."""
+    return type(draws)(*(draws_to(d, device) if isinstance(d, tuple) else d.to(device)
+                         for d in draws))
+
+
+def synced_ms(fn, warm: int, reps: int):
+    """Host-clock ms of each of `reps` calls of `fn()`, each fenced by CUDA
+    synchronisations, after `warm` unmeasured calls."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def train_step_card_vs_cpu(seed=5):
+    """One train step at 64x64, B=8, float32 encoder, from the same seeded
+    state and the same draws, on the card and on the CPU: the loss, the
+    task losses, every parameter's gradient, the BatchNorm running
+    statistics after the step and the IEF's fc1/fc2 pre-activations (the
+    ReLU gates), each side's on the CPU."""
+    from straps_tpu_torch.config import TrainConfig
+    from straps_tpu_torch.train.loop import build_training
+    from straps_tpu_torch.train.synthetic import draw_synthetic
+
+    cfg = TrainConfig(img_wh=64, batch_size=8, focal_length=1250.0)
+    cfg.model.compute_dtype = None
+    rng = np.random.RandomState(seed)
+    pose = torch.tensor((rng.randn(8, 72) * 0.2).astype(np.float32))
+    shape = torch.tensor((rng.randn(8, 10) * 0.5).astype(np.float32))
+    out = {}
+    for device in ("cuda", "cpu"):
+        _, assets, state, train_step, _ = build_training(cfg, device=device)
+        gates = []
+        for fc in (state.model.ief_module.fc1, state.model.ief_module.fc2):
+            fc.register_forward_hook(lambda m, i, o: gates.append(o.detach().cpu().flatten()))
+        draws = draw_synthetic(torch.Generator().manual_seed(seed), 8, assets.num_verts,
+                               cfg, "cpu")
+        loss, tasks, _ = train_step(state, draws_to(draws, device), pose.to(device),
+                                    shape.to(device))
+        out[device] = (
+            float(loss), {k: float(v) for k, v in tasks.items()},
+            {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()},
+            {k: b.detach().cpu() for k, b in state.model.named_buffers() if "running" in k},
+            torch.cat(gates))
+    return out["cuda"], out["cpu"]
+
+
 def reset_launches():
     from straps_tpu_torch.render import cuda_raster as CR
     for k in CR.KERNELS:
@@ -303,10 +406,12 @@ def write_eval_npz(path, n, seed):
              genders=np.asarray(["n"] * n))
 
 
-def profile_run(card, label, n, unit, run, top=10):
+def profile_run(card, label, n, unit, run, top=10, host_top=8):
     """Wall time of `run()` twice (the second warm), then one profiled run:
     the device busy share, the entries with the most device time and the
-    rasteriser kernels' entries."""
+    rasteriser kernels' entries, then the host's kernel launches and the
+    host entries with the most self time.  Returns the device busy ms of
+    the profiled run (None when the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -337,7 +442,7 @@ def profile_run(card, label, n, unit, run, top=10):
     busy_ms = sum(device_us(e) for e in events) / 1e3
     if busy_ms == 0:
         print("profile: the profiler saw no device time (not measured)")
-        return
+        return None
     print(f"profile on {card}: {label} {wall_ms:.2f} ms wall under the profiler, device "
           f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%")
@@ -346,6 +451,15 @@ def profile_run(card, label, n, unit, run, top=10):
     for e in events[:top] + [e for e in events[top:] if "span_raster" in e.key]:
         print(f"  {device_us(e) / 1e3:9.3f} ms {100 * device_us(e) / 1e3 / busy_ms:5.1f}%"
               f"  x{e.count:<5d} {e.key[:100]}")
+    host = sorted((e for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    launched = sum(e.count for e in host if "LaunchKernel" in e.key)
+    print(f"  host: {launched} kernel launches, {len(host)} kinds of host entry; most self time:")
+    for e in host[:host_top]:
+        ms = e.self_cpu_time_total / 1e3
+        print(f"  {ms:9.3f} ms {100 * ms / wall_ms:5.1f}% of wall  x{e.count:<5d} {e.key[:100]}")
+    return busy_ms
 
 
 def main() -> int:
@@ -361,15 +475,20 @@ def main() -> int:
     import straps_tpu_torch
     if os.path.dirname(os.path.dirname(os.path.abspath(straps_tpu_torch.__file__))) != here:
         raise RuntimeError("chip_smoke.py must run from a checkout holding straps_tpu_torch/")
-    from straps_tpu_torch.cli import run_eval, run_predict
-    from straps_tpu_torch.config import PredictConfig
+    from straps_tpu_torch.cli import run_eval, run_predict, run_train
+    from straps_tpu_torch.config import PredictConfig, TrainConfig
     from straps_tpu_torch.eval_harness.runner import run_evaluation, synthesise_proxy_inputs
     from straps_tpu_torch.predict.pipeline import (
         REPOSED_CAM_WP, load_regressor_variables, make_predict_fn, predict_3d, save_proxies,
     )
     from straps_tpu_torch.render import cuda_raster as CR
     from straps_tpu_torch.render import raster as R
+    from straps_tpu_torch.losses.multi_task import init_loss_log_vars
     from straps_tpu_torch.smpl.assets import load_synthetic_assets
+    from straps_tpu_torch.train.loop import build_training, pull_to_host
+    from straps_tpu_torch.train.step import train_on_batch
+    from straps_tpu_torch.train.synthetic import draw_synthetic, generate_synthetic_batch
+    from straps_tpu_torch.utils.checkpoints import checkpoint_path, load_checkpoint
     from straps_tpu_torch.utils.device import resolve_device
     sys.path.insert(0, os.path.join(here, "tests"))
     from raster_scenes import KERNEL_SCENES
@@ -413,7 +532,6 @@ def main() -> int:
                                             for t in scene())
         errs.append(compare_kernel(name, flat, bounds, attr, img_h, img_w))
         faceid_errs.append(compare_faceid(name, flat, bounds, img_h, img_w))
-    max_abs_err = max(errs)
 
     # 4a. The evaluation slice: the evaluation CLI at full width.
     n, batch = 64, 32
@@ -540,6 +658,85 @@ def main() -> int:
     if worst_npy > 1e-4 or moved >= 0.002:
         raise AssertionError("predict on the card disagrees with the CPU")
 
+    # 4c. The training slice: the train CLI for one epoch at the released
+    # configuration, in a working directory of its own.
+    train_cfg = TrainConfig()
+    B = train_cfg.batch_size
+    train_dir = os.path.join(tmp.name, "train")
+    os.makedirs(train_dir)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.chdir(train_dir), contextlib.redirect_stdout(io.StringIO()) as cli_out:
+        state, _, tracker = run_train.main(["--synthetic-data", "--device", "cuda",
+                                            "num_epochs=1"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = CR.packed_raster_kernel.launches
+    train_steps, val_steps = 4, 2         # 560 and 280 corpus samples at batch 140
+    print("\n".join(line for line in cli_out.getvalue().splitlines()
+                    if line.startswith(("epoch ", "Training completed"))))
+    print(f"slice: train CLI, 1 epoch at batch {B}, {train_cfg.img_wh}x{train_cfg.img_wh}, "
+          f"bf16 encoder ({train_steps} train + {val_steps} val steps, first steps "
+          f"included): {train_s:.3f} s wall, packed kernel launches {train_launches}, "
+          f"face-id kernel launches {CR.faceid_raster_kernel.launches}")
+    if train_launches != train_steps + val_steps:
+        raise AssertionError(f"training renders: {train_launches} packed launches, want "
+                             f"{train_steps + val_steps}")
+    history = {k: v for k, v in tracker.history.items() if v}
+    if not history or not all(np.isfinite(v).all() for v in history.values()):
+        raise AssertionError(f"non-finite training history: {tracker.history}")
+    ckpt_path = os.path.join(train_dir, checkpoint_path(train_cfg.model_save_path, 0))
+    saved = load_checkpoint(ckpt_path)            # torch.load(weights_only=True)
+    if (saved["epoch"] != 0 or saved["state"]["step"] != train_steps
+            or saved["meta"] != {"heatmap_mode": train_cfg.heatmap_mode}
+            or set(saved["best_params"]) != set(dict(state.model.named_parameters()))):
+        raise AssertionError(f"checkpoint {ckpt_path}: unexpected contents")
+    init_lv = init_loss_log_vars(train_cfg.losses_on, train_cfg.init_loss_weights)
+    lv_moved = {k: float(state.log_vars[k].detach()) - float(init_lv[k].detach())
+                for k in train_cfg.losses_on}
+    print(f"slice: checkpoint {os.path.basename(ckpt_path)} read back with weights_only=True "
+          f"({os.path.getsize(ckpt_path)} bytes); log-variances moved by {lv_moved}")
+    if not all(abs(d) > 0 for d in lv_moved.values()):
+        raise AssertionError("a loss log-variance did not move")
+    del state, tracker, saved
+
+    # The packed kernel against its plain version on the render of one
+    # augmented training batch at the released configuration.
+    flat_t, bounds_t, attr_t = training_kernel_inputs(assets, train_cfg, seed=7)
+    errs.append(compare_kernel(f"training batch B={B} 256x256 culled, jittered cameras, "
+                               f"vertex noise", flat_t, bounds_t, attr_t, 256, 256))
+    max_abs_err = max(errs)
+
+    # One train step, small and float32, on the card and on the CPU.  A
+    # gradient is discontinuous at a ReLU's kink: a pre-activation within
+    # the two devices' rounding of 0 can open its gate on one side only,
+    # and the step's gradients then differ by that unit's share whatever
+    # the port does.  The seed's smallest IEF pre-activation is 7e-5, and
+    # the check first shows that no IEF gate differs.
+    (loss_k, tasks_k, grads_k, stats_k, gates_k), (loss_c, tasks_c, grads_c, stats_c,
+                                                   gates_c) = train_step_card_vs_cpu()
+    flipped = int(((gates_k > 0) != (gates_c > 0)).sum())
+    print(f"reference check, one train step 64x64 B=8 f32: IEF ReLU gates that differ "
+          f"between card and CPU {flipped} of {gates_c.numel()} (smallest |pre-activation| "
+          f"{float(gates_c.abs().min()):.3e}, largest card-vs-CPU difference "
+          f"{float((gates_k - gates_c).abs().max()):.3e})")
+    if flipped:
+        raise AssertionError("an IEF ReLU gate differs between card and CPU")
+    d_loss = max([abs(loss_k - loss_c) / abs(loss_c)]
+                 + [abs(tasks_k[t] - tasks_c[t]) / abs(tasks_c[t]) for t in tasks_c])
+    d_grad, worst_grad = max((float((grads_k[k] - g).abs().max() / g.abs().max()), k)
+                             for k, g in grads_c.items())
+    d_stats = max(float((stats_k[k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
+                  for k, v in stats_c.items())
+    print(f"reference check, one train step 64x64 B=8 f32, card vs CPU: loss and task "
+          f"losses worst relative difference {d_loss:.3e} (bound 1e-4), gradients worst "
+          f"{d_grad:.3e} of a tensor's largest ({worst_grad}; bound 2e-3), BatchNorm "
+          f"running statistics worst {d_stats:.3e} of a tensor's largest (bound 1e-4); "
+          f"loss {loss_c:.6f}")
+    if d_loss > 1e-4 or d_grad > 2e-3 or d_stats > 1e-4:
+        raise AssertionError("the train step on the card disagrees with the CPU")
+
     # 5. Times.
     flat, bounds, attr = smpl_kernel_inputs(assets, 256, 64, seed=5)
     kernel_ms = cuda_ms(lambda: CR.packed_raster_kernel(flat, bounds, attr, 256, 256), 200)
@@ -575,6 +772,61 @@ def main() -> int:
     predict_cfg = PredictConfig(input_dir=proxy_dir, checkpoint=ckpt_pred, out_dir=out_dir)
     profile_run(card, f"predict of {n} cached proxies at 256x256, renders included", n,
                 "images", lambda: predict_3d(predict_cfg, device="cuda"))
+
+    # The train step at the released configuration (batch 140, 256x256,
+    # bfloat16 encoder): the whole step as the loop runs it (draws,
+    # synthetic batch, forward, backward, Adam, one host pull), then its
+    # two halves, then three steps under the profiler.
+    _, train_assets, state, train_step, _ = build_training(train_cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    g = torch.Generator().manual_seed(11)
+    pose = (torch.randn(B, 72, generator=g) * 0.2).to(dev)
+    shape = (torch.randn(B, 10, generator=g) * 0.5).to(dev)
+
+    def draws():
+        return draw_synthetic(gen, B, train_assets.num_verts, train_cfg, dev)
+
+    def full_step():
+        pull_to_host(*train_step(state, draws(), pose, shape))
+
+    torch.cuda.reset_peak_memory_stats()
+    step_times = synced_ms(full_step, warm=3, reps=12)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_med = float(np.median(step_times))
+    synth_med = float(np.median(synced_ms(
+        lambda: generate_synthetic_batch(draws(), pose, shape, train_assets, train_cfg),
+        warm=1, reps=10)))
+    batch_t = generate_synthetic_batch(draws(), pose, shape, train_assets, train_cfg)
+    update_med = float(np.median(synced_ms(
+        lambda: pull_to_host(*train_on_batch(state, batch_t, train_assets, train_cfg)),
+        warm=1, reps=10)))
+    print(f"times on {card}: warm train step at batch {B}, 256x256, bf16 encoder: median "
+          f"{step_med:.2f} ms/step over {len(step_times)} steps ({B / step_med * 1e3:.1f} "
+          f"samples/s; min {min(step_times):.2f}, max {max(step_times):.2f} ms; peak device "
+          f"memory {peak_gib:.2f} GiB)")
+    print(f"times on {card}: train step halves, medians of 10: draws + synthetic batch "
+          f"{synth_med:.2f} ms, forward + backward + Adam + metrics + host pull "
+          f"{update_med:.2f} ms (sum {synth_med + update_med:.2f} ms)")
+    busy_ms = profile_run(card, f"3 train steps at batch {B}, 256x256", 3 * B, "samples",
+                          lambda: [full_step() for _ in range(3)])
+    if busy_ms is not None:
+        print(f"times on {card}: device busy {busy_ms / 3:.2f} ms per profiled train step, "
+              f"{100 * busy_ms / 3 / step_med:.1f}% of the median unprofiled step")
+    del state, batch_t
+
+    # The packed kernel on the training bodies (the `kernels` line's
+    # numbers: the training step is its main consumer).
+    train_kernel_ms = cuda_ms(
+        lambda: CR.packed_raster_kernel(flat_t, bounds_t, attr_t, 256, 256), 200)
+    train_plain_ms = cuda_ms(
+        lambda: CR.rasterize_packed_reference(flat_t, bounds_t, attr_t, 256, 256), 2)
+    train_bound_ms, train_bound_by = kernel_bound_ms(flat_t, bounds_t, 256, 256,
+                                                     attr_t.numel() * 4, 4)
+    print(f"times on {card}: packed raster kernel B={B} 256x256 on a training batch "
+          f"(culled, jittered cameras, vertex noise) {train_kernel_ms:.4f} ms (bound "
+          f"{train_bound_ms:.4f} ms by {train_bound_by}, "
+          f"{100 * train_bound_ms / train_kernel_ms:.1f}% of it); plain version "
+          f"{train_plain_ms:.3f} ms")
     tmp.cleanup()
 
     print(card_line())
@@ -582,9 +834,9 @@ def main() -> int:
         "name": "raster_packed", "route": "cuda",
         "source": "straps_tpu_torch/csrc/raster_packed.cu",
         "replaces": "straps_tpu/render/pallas_raster.py:106",
-        "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}, {
+        "launches": launches + train_launches, "max_abs_err": max_abs_err,
+        "ms": train_kernel_ms, "plain_ms": train_plain_ms, "bound_ms": train_bound_ms,
+        "bound_by": train_bound_by, "library_ms": None}, {
         "name": "raster_faceid", "route": "cuda",
         "source": "straps_tpu_torch/csrc/raster_faceid.cu",
         "replaces": "straps_tpu/render/pallas_raster.py:50",

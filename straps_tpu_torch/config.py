@@ -1,15 +1,19 @@
-"""Configuration of the evaluation and predict paths: `ModelConfig`,
-`PredictConfig` and the 'dotted.key=value' CLI overrides.
+"""Typed configuration: `ModelConfig`, `PredictConfig`, the training and
+augmentation configs, YAML loading and the 'dotted.key=value' CLI overrides.
 
-A copy of the inference part of `straps_tpu/config.py` (the training and
-augmentation configs wait for the training slice).  Fields of paths the port
-does not serve yet (the detector checkpoints and budgets) are left out.
+A copy of `straps_tpu/config.py`, with the defaults of the reference's
+released training configuration.  Left out: the JAX package's
+`RenderConfig` (here the tensors' device picks the rasteriser),
+`smpl_precision` (the port's SMPL is always full float32, TF32 off),
+`data_parallel_devices` (one card), the silhouette loss size (the
+silhouette task is not ported), and the detector checkpoints and budgets
+of the predict config.
 """
 
 import ast
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 
 @dataclass
@@ -20,6 +24,79 @@ class ModelConfig:
     # Encoder compute dtype; parameters, the IEF head and SMPL stay float32.
     # 'bfloat16' runs the encoder under autocast; None computes in float32.
     compute_dtype: Optional[str] = "bfloat16"
+
+
+@dataclass
+class SmplAugmentConfig:
+    augment_shape: bool = True
+    delta_betas_distribution: str = "normal"        # 'normal' | 'uniform'
+    delta_betas_std: float = 1.5
+    delta_betas_range: Tuple[float, float] = (-3.0, 3.0)
+
+
+@dataclass
+class CamAugmentConfig:
+    xy_std: float = 0.05
+    delta_z_range: Tuple[float, float] = (-5.0, 5.0)
+
+
+@dataclass
+class BboxAugmentConfig:
+    crop_input: bool = True
+    mean_scale_factor: float = 1.2
+    delta_scale_range: Tuple[float, float] = (-0.2, 0.2)
+    delta_centre_range: Tuple[float, float] = (-5.0, 5.0)
+
+
+@dataclass
+class ProxyAugmentConfig:
+    remove_appendages: bool = True
+    deviate_joints2D: bool = True
+    deviate_verts2D: bool = True
+    occlude_seg: bool = True
+    remove_appendages_classes: Tuple[int, ...] = (1, 2, 3, 4, 5, 6)
+    remove_appendages_probabilities: Tuple[float, ...] = (
+        0.1, 0.1, 0.1, 0.1, 0.05, 0.05)
+    delta_j2d_dev_range: Tuple[float, float] = (-8.0, 8.0)
+    delta_j2d_hip_dev_range: Tuple[float, float] = (-8.0, 8.0)
+    delta_verts2d_dev_range: Tuple[float, float] = (-0.01, 0.01)
+    occlude_probability: float = 0.5
+    occlude_box_dim: int = 48
+
+
+@dataclass
+class TrainConfig:
+    batch_size: int = 140
+    lr: float = 1e-4
+    num_epochs: int = 100
+    epochs_per_save: int = 10
+    img_wh: int = 256
+    focal_length: float = 5000.0
+    mean_cam_t: Tuple[float, float, float] = (0.0, 0.2, 42.0)
+    losses_on: Tuple[str, ...] = (
+        "verts", "shape_params", "pose_params", "joints2D", "joints3D")
+    init_loss_weights: Dict[str, float] = field(default_factory=lambda: {
+        "verts": 1.0, "joints2D": 0.1, "pose_params": 0.1,
+        "shape_params": 0.1, "joints3D": 1.0})
+    metrics_to_track: Tuple[str, ...] = (
+        "pves", "pves_sc", "pves_pa", "pve-ts", "pve-ts_sc", "mpjpes",
+        "mpjpes_sc", "mpjpes_pa", "shape_mses", "pose_mses", "joints2D_l2es")
+    save_val_metrics: Tuple[str, ...] = ("pves_pa", "mpjpes_pa")
+    train_path: str = "data/amass_up3d_3dpw_train.npz"
+    val_path: str = "data/up3d_3dpw_val.npz"
+    params_from: str = "all"
+    model_save_path: str = "checkpoints/model_training/straps_model_checkpoint"
+    log_path: str = "logs/straps_model_logs.pkl"
+    resume_from_epoch: Optional[int] = None
+    seed: int = 0
+    smpl_dir: Optional[str] = None                  # None -> synthetic assets
+    model: ModelConfig = field(default_factory=ModelConfig)
+    smpl_augment: SmplAugmentConfig = field(default_factory=SmplAugmentConfig)
+    cam_augment: CamAugmentConfig = field(default_factory=CamAugmentConfig)
+    bbox_augment: BboxAugmentConfig = field(default_factory=BboxAugmentConfig)
+    proxy_augment: ProxyAugmentConfig = field(default_factory=ProxyAugmentConfig)
+    # 'clean' (centred Gaussian) | 'legacy' (the reference's linspace grid).
+    heatmap_mode: str = "clean"
 
 
 @dataclass
@@ -37,7 +114,8 @@ class PredictConfig:
     img_wh: int = 256
     smpl_dir: Optional[str] = None
     # 'auto' resolves from the checkpoint: reference `.tar` checkpoints were
-    # trained on legacy-grid heatmaps, no checkpoint -> 'clean'.
+    # trained on legacy-grid heatmaps, the port's training checkpoints
+    # record their mode, no checkpoint -> 'clean'.
     heatmap_mode: str = "auto"         # 'auto' | 'clean' | 'legacy'
     model: ModelConfig = field(default_factory=ModelConfig)
 
@@ -70,3 +148,16 @@ def apply_cli_overrides(cfg, cli_overrides: Optional[Sequence[str]]):
             value = raw
         _apply_overrides(cfg, {key: value})
     return cfg
+
+
+def load_config(cls, yaml_path: Optional[str] = None,
+                cli_overrides: Optional[Sequence[str]] = None):
+    """Build a config: defaults <- YAML file <- 'key=value' CLI overrides.
+    PyYAML is imported only when a YAML file is given."""
+    cfg = cls()
+    if yaml_path:
+        import yaml
+        with open(yaml_path) as f:
+            data = yaml.safe_load(f) or {}
+        _apply_overrides(cfg, data)
+    return apply_cli_overrides(cfg, cli_overrides)

@@ -1,4 +1,4 @@
-"""Joint-convention and body-model constants used by the evaluation path.
+"""Joint-convention and body-model constants of the ported paths.
 
 A copy of the tables of `straps_tpu/constants.py` that this package needs
 (the port imports nothing of `straps_tpu`).  The joint index maps must match
@@ -19,6 +19,8 @@ ALL_JOINTS_TO_COCO_MAP = [24, 26, 25, 28, 27, 16, 17, 18, 19, 20, 21, 1, 2, 4, 5
 ALL_JOINTS_TO_H36M_MAP = list(range(73, 90))
 # 17 H36M joints -> 14 LSP joints.
 H36M_TO_J14 = [6, 5, 4, 1, 2, 3, 16, 15, 14, 11, 12, 13, 8, 10]
+# COCO hips: the training proxy's joint noise gives them their own range.
+COCO_HIP_JOINTS = [11, 12]
 
 # Vertex ids of the 21 keypoints appended after the 24 kinematic joints.
 SMPL_VERTEX_IDS = {

@@ -1,12 +1,13 @@
-"""Inference crop: square silhouette bounding box + nearest resize
-(counterpart of the inference part of `straps_tpu/geometry/bbox.py`).
+"""Square silhouette bounding-box crops + nearest resize: the training crop
+(jittered, clamped at the image) and the inference crop (zero-padded)
+(counterpart of `straps_tpu/geometry/bbox.py`).
 
 Batched over the leading dimension.  The resize is a plain gather (the JAX
 package's one-hot matmul is a TPU workaround with the same output).  Nearest
 sampling follows cv2's INTER_NEAREST: src = floor(dst * src_size / dst_size).
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,14 +38,20 @@ def mask_bounding_box(mask: torch.Tensor):
             torch.where(empty, zero, c0), torch.where(empty, zero, c1))
 
 
-def square_bbox_corners(seg: torch.Tensor, scale_factor: float):
+def square_bbox_corners(seg: torch.Tensor, scale_factor,
+                        centre_offset: Optional[torch.Tensor] = None):
     """Unclamped int32 corners (top_r, top_c, bot_r, bot_c), each (B,), of
-    the square silhouette-bbox crop.  Float32 arithmetic, truncation toward
-    zero, as the reference."""
+    the square silhouette-bbox crop.  `scale_factor` is a float or (B,)
+    float32; `centre_offset` an optional (B, 2) float32 (row, col) shift of
+    the centre.  Float32 arithmetic, truncation toward zero, as the
+    reference."""
     r0, r1, c0, c1 = mask_bounding_box(seg)
     two = _f32(2.0, seg)
     centre_r = (r0 + r1).to(torch.float32) / two
     centre_c = (c0 + c1).to(torch.float32) / two
+    if centre_offset is not None:
+        centre_r = centre_r + centre_offset[:, 0]
+        centre_c = centre_c + centre_offset[:, 1]
     bb_h = (r1 - r0).to(torch.float32)
     bb_w = (c1 - c0).to(torch.float32)
     wh = torch.maximum(bb_h, bb_w) * _f32(scale_factor, seg)
@@ -95,4 +102,33 @@ def crop_and_resize_padded(seg: torch.Tensor, joints2d: torch.Tensor,
     shifted = joints2d - torch.stack([top_c, top_r], dim=-1).to(torch.float32)[:, None, :]
     scale = torch.stack([_f32(out_wh, seg) / crop_w.to(torch.float32),
                          _f32(out_wh, seg) / crop_h.to(torch.float32)], dim=-1)
+    return out, shifted * scale[:, None, :]
+
+
+def batch_crop_and_resize(segs: torch.Tensor, joints2d: torch.Tensor, out_wh: int,
+                          scale_factors: torch.Tensor, centre_offsets: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training crop: the square bbox of side max(h, w) * scale factor
+    around the jittered centre, its corners clamped at 0 and the crop
+    truncated at the image size (it shrinks there, changing its aspect
+    ratio), resized to out_wh; joints offset by the clamped top-left corner
+    and scaled.
+
+    Args:
+      segs: (B, H, W); joints2d: (B, J, 2) pixel (x, y);
+      scale_factors: (B,) float32; centre_offsets: (B, 2) float32 (row, col).
+    Returns:
+      (B, out_wh, out_wh) crops and (B, J, 2) joints.
+    """
+    h, w = segs.shape[1:]
+    top_r, top_c, bot_r, bot_c = square_bbox_corners(segs, scale_factors,
+                                                     centre_offsets)
+    top_r, top_c, bot_r, bot_c = (torch.clamp(x, min=0)
+                                  for x in (top_r, top_c, bot_r, bot_c))
+    crop_h = torch.clamp(torch.clamp(bot_r, max=h) - top_r, min=1)
+    crop_w = torch.clamp(torch.clamp(bot_c, max=w) - top_c, min=1)
+    out = _nearest_resample(segs, top_r, top_c, crop_h, crop_w, out_wh)
+    shifted = joints2d - torch.stack([top_c, top_r], dim=-1).to(torch.float32)[:, None, :]
+    scale = torch.stack([_f32(out_wh, segs) / crop_w.to(torch.float32),
+                         _f32(out_wh, segs) / crop_h.to(torch.float32)], dim=-1)
     return out, shifted * scale[:, None, :]

@@ -1,15 +1,17 @@
 """Weights across frameworks: the JAX package's flax variables -> this
-package's state dict, and reference `.tar` checkpoints.
+package's state dict or training state, and reference `.tar` checkpoints.
 
 Counterpart of `straps_tpu/models/convert.py::flax_to_torch_state_dict`
 (numpy only; it takes the flax variables as nested dicts of numpy arrays).
 Layouts: conv HWIO -> OIHW, dense (in, out) -> (out, in).
 """
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from straps_tpu_torch.train.state import create_train_state
 
 
 def flax_to_torch_state_dict(variables: dict) -> Dict[str, np.ndarray]:
@@ -75,3 +77,18 @@ def load_reference_checkpoint(path: str, key: str = "best_model_state_dict"
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     state = ckpt[key] if key in ckpt else ckpt
     return {k: v for k, v in state.items() if isinstance(v, torch.Tensor)}
+
+
+def train_state_from_flax(params: dict, batch_stats: dict, log_vars: Dict[str, object],
+                          model, lr: float, device: Optional[torch.device] = None):
+    """The JAX package's training state (flax `params` and `batch_stats`,
+    the `log_vars` dict of scalars) -> this package's `TrainState`: the
+    weights and BatchNorm statistics loaded into `model` (strict), the
+    log-variances as float32 leaf tensors, a fresh Adam at step 0."""
+    device = device or next(model.parameters()).device
+    sd = flax_to_torch_state_dict({"params": params, "batch_stats": batch_stats})
+    model.load_state_dict(state_dict_to_tensors(sd), strict=True)
+    model.to(device)
+    lv = {k: torch.tensor(np.float32(np.asarray(v)), device=device, requires_grad=True)
+          for k, v in log_vars.items()}
+    return create_train_state(model, lv, lr)

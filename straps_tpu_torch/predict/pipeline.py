@@ -31,6 +31,7 @@ from straps_tpu_torch.predict.proxy import batch_silhouettes_joints_to_proxies
 from straps_tpu_torch.render.vis import proxy_vis_batch, render_body_vis_batch
 from straps_tpu_torch.smpl.assets import SmplAssets, load_assets
 from straps_tpu_torch.smpl.model import select_joint_sets, smpl_forward
+from straps_tpu_torch.utils.checkpoints import load_checkpoint
 from straps_tpu_torch.utils.device import resolve_device
 from straps_tpu_torch.utils.png import write_png
 
@@ -95,10 +96,12 @@ def load_regressor_variables(cfg: PredictConfig, assets: SmplAssets,
                              ) -> Tuple[SingleInputRegressor, str]:
     """Build the regressor on `device` (`cuda` raises without a card) and
     load its weights per `cfg.checkpoint`: None -> seeded random weights
-    (heatmap mode 'clean'), a reference `.tar` -> its
-    `best_model_state_dict` (trained on legacy-grid heatmaps).  Returns
-    (model in eval mode, resolved heatmap mode).  The JAX package's orbax
-    checkpoints are not read yet."""
+    (heatmap mode 'clean'); a reference `.tar` -> its
+    `best_model_state_dict` (trained on legacy-grid heatmaps); a training
+    checkpoint of this package (`.pt`) -> its best parameters with the
+    state's BatchNorm statistics, and the heatmap mode it records.
+    Returns (model in eval mode, resolved heatmap mode).  The JAX
+    package's orbax checkpoints are not read yet."""
     device = resolve_device(device)
     model = build_regressor(assets.mean_pose_6d, assets.mean_shape,
                             in_channels=cfg.model.resnet_in_channels,
@@ -111,10 +114,15 @@ def load_regressor_variables(cfg: PredictConfig, assets: SmplAssets,
     elif cfg.checkpoint.endswith(".tar"):
         model.load_state_dict(load_reference_checkpoint(cfg.checkpoint), strict=True)
         trained_mode = "legacy"
+    elif cfg.checkpoint.endswith(".pt"):
+        ckpt = load_checkpoint(cfg.checkpoint)
+        model.load_state_dict({**ckpt["state"]["model"], **ckpt["best_params"]}, strict=True)
+        trained_mode = ckpt.get("meta", {}).get("heatmap_mode")
     else:
         raise NotImplementedError(
-            f"{cfg.checkpoint}: only reference .tar checkpoints are read by "
-            f"the PyTorch port (orbax checkpoints are not ported yet)")
+            f"{cfg.checkpoint}: the PyTorch port reads reference .tar checkpoints "
+            f"and its own training checkpoints (.pt); orbax checkpoints are not "
+            f"ported yet")
     mode = resolve_heatmap_mode(cfg.heatmap_mode, trained_mode, str(cfg.checkpoint))
     return model.to(device).eval(), mode
 

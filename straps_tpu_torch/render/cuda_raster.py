@@ -252,8 +252,15 @@ def rasterize_packed_reference(planes: torch.Tensor, bounds: torch.Tensor,
                                img_w: int) -> torch.Tensor:
     """Plain PyTorch version of the packed kernel: same arguments, same
     keys.  Each chunk is evaluated over the union of its row bands, every
-    pixel of every batch element inside it."""
+    pixel of every batch element inside it.  The batch is taken in
+    sub-batches that keep each temporary under 256 MB (each element's keys
+    depend on its own planes only)."""
     B = planes.shape[0]
+    sub = max(1, _PLAIN_TEMP_BYTES // (FACE_CHUNK * img_h * img_w * 4))
+    if B > sub:
+        return torch.cat([rasterize_packed_reference(planes[s:s + sub], bounds[s:s + sub],
+                                                     attr, img_h, img_w)
+                          for s in range(0, B, sub)])
     xs, ys = _pixel_centres(img_h, img_w, planes.device)
     key = torch.full((B, img_h, img_w), PACKED_INIT, dtype=torch.int32, device=planes.device)
     for c, lo, hi in _band_chunks(bounds):

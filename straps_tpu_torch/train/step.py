@@ -1,0 +1,107 @@
+"""Train and validation steps (counterpart of `straps_tpu/train/step.py`).
+
+A train step: synthetic batch (no gradients) -> regressor in train mode ->
+rot6d -> SMPL on the predictions -> multi-task loss -> backward -> one Adam
+update of the parameters and the log-variances together -> per-frame
+metrics.  Each step returns its loss, task losses and per-frame metrics as
+device tensors; the caller pulls them to the host once per step, which is
+the step's completion barrier.
+"""
+
+from typing import Dict, Tuple
+
+import torch
+
+from straps_tpu_torch.config import TrainConfig
+from straps_tpu_torch.geometry.camera import orthographic_project
+from straps_tpu_torch.geometry.rotations import rot6d_to_rotmat
+from straps_tpu_torch.losses.multi_task import multi_task_loss
+from straps_tpu_torch.metrics.compute import compute_per_frame_metrics
+from straps_tpu_torch.smpl.assets import SmplAssets
+from straps_tpu_torch.smpl.model import select_joint_sets, smpl_forward
+from straps_tpu_torch.train.state import TrainState
+from straps_tpu_torch.train.synthetic import SyntheticBatch, generate_synthetic_batch
+
+StepOutput = Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
+
+
+def _forward_and_dicts(model, log_vars, batch: SyntheticBatch, assets: SmplAssets,
+                       cfg: TrainConfig, train: bool):
+    """Regressor forward (BatchNorm in train or eval mode) + predicted SMPL
+    + loss.  Returns (loss, task_losses, pred_dict, target_dict,
+    predicted reposed vertices); the reposed mesh feeds only the metrics
+    and carries no gradient."""
+    model.train(train)
+    cam, pose6d, shape = model(batch.proxy)
+    B = cam.shape[0]
+    rotmats = rot6d_to_rotmat(pose6d.reshape(B, 24, 6))      # (B, 24, 3, 3)
+    pred = smpl_forward(assets, shape, rotmats[:, 1:], rotmats[:, 0:1])
+    with torch.no_grad():
+        pred_reposed = smpl_forward(assets, shape)
+    pred_h36mlsp, pred_coco = select_joint_sets(pred.joints)
+    pred_joints2d = orthographic_project(pred_coco, cam)
+
+    pred_dict = {
+        "verts": pred.vertices,
+        "joints2D": pred_joints2d,
+        "joints3D": pred_h36mlsp,
+        "pose_params_rot_matrices": rotmats,
+        "shape_params": shape,
+    }
+    target_dict = {
+        "verts": batch.target_verts,
+        "joints2D": batch.target_joints2d_coco,
+        "joints3D": batch.target_joints_h36mlsp,
+        "pose_params_rot_matrices": batch.target_pose_rotmats,
+        "shape_params": batch.target_shape,
+        "vis": batch.target_vis,
+    }
+    loss, task_losses = multi_task_loss(log_vars, target_dict, pred_dict, cfg.img_wh)
+    return loss, task_losses, pred_dict, target_dict, pred_reposed.vertices
+
+
+@torch.no_grad()
+def _metrics(cfg: TrainConfig, pred_dict, target_dict, pred_reposed,
+             batch: SyntheticBatch) -> Dict[str, torch.Tensor]:
+    return compute_per_frame_metrics(tuple(cfg.metrics_to_track), pred_dict, target_dict,
+                                     cfg.img_wh, pred_reposed=pred_reposed,
+                                     target_reposed=batch.target_reposed_verts)
+
+
+def train_on_batch(state: TrainState, batch: SyntheticBatch, assets: SmplAssets,
+                   cfg: TrainConfig) -> StepOutput:
+    """Forward, backward and one Adam update on `batch`; `state` is updated
+    in place, and each trainable's `.grad` keeps this step's gradient.
+    Returns (loss, task_losses, per_frame metrics), detached, on the
+    device."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, task_losses, pred_dict, target_dict, pred_reposed = _forward_and_dicts(
+        state.model, state.log_vars, batch, assets, cfg, train=True)
+    loss.backward()
+    state.optimizer.step()
+    state.step += 1
+    per_frame = _metrics(cfg, pred_dict, target_dict, pred_reposed, batch)
+    return loss.detach(), {k: v.detach() for k, v in task_losses.items()}, per_frame
+
+
+def make_train_step(assets: SmplAssets, cfg: TrainConfig):
+    """fn(state, draws, pose (B, 72), shape (B, 10)) -> (loss, task_losses,
+    per_frame): the augmented synthetic batch of `draws`, then
+    `train_on_batch`."""
+    def step(state: TrainState, draws, pose: torch.Tensor, shape: torch.Tensor) -> StepOutput:
+        batch = generate_synthetic_batch(draws, pose, shape, assets, cfg, augment=True)
+        return train_on_batch(state, batch, assets, cfg)
+    return step
+
+
+def make_val_step(assets: SmplAssets, cfg: TrainConfig):
+    """fn(state, pose, shape) -> (loss, task_losses, per_frame): no
+    augmentation, the mean camera and crop, BatchNorm in eval mode, no
+    update."""
+    @torch.no_grad()
+    def step(state: TrainState, pose: torch.Tensor, shape: torch.Tensor) -> StepOutput:
+        batch = generate_synthetic_batch(None, pose, shape, assets, cfg, augment=False)
+        loss, task_losses, pred_dict, target_dict, pred_reposed = _forward_and_dicts(
+            state.model, state.log_vars, batch, assets, cfg, train=False)
+        return loss, task_losses, _metrics(cfg, pred_dict, target_dict, pred_reposed, batch)
+    return step

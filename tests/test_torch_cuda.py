@@ -4,7 +4,8 @@ Skipped where CUDA is absent.  On an H100:
 `python -m pytest tests/test_torch_cuda.py -m cuda`.  Both sides round
 every product and sum separately, so the packed keys, the face ids and
 the depths agree exactly: on SMPL bodies at 64², 250² and 512² (two
-256-column tiles), and on the scenes of `tests/raster_scenes.py` (wide
+256-column tiles), on the render of an augmented training batch, and on
+the scenes of `tests/raster_scenes.py` (wide
 triangles across tile edges, ragged widths, near-horizontal edges, vertices
 on pixel centres, special planes, a coplanar tie across two chunks).
 """
@@ -13,14 +14,16 @@ import numpy as np
 import pytest
 import torch
 
-from straps_tpu_torch.config import PredictConfig
+from straps_tpu_torch.config import PredictConfig, TrainConfig
 from straps_tpu_torch.geometry.camera import get_intrinsics_matrix
 from straps_tpu_torch.predict.pipeline import predict_3d, save_proxies
 from straps_tpu_torch.render import cuda_raster as CR
 from straps_tpu_torch.render import raster as TR
+from straps_tpu_torch.render import renderer
 from straps_tpu_torch.render.renderer import render_rgb, render_silhouette
 from straps_tpu_torch.smpl.assets import load_synthetic_assets
 from straps_tpu_torch.smpl.model import smpl_forward_axis_angle
+from straps_tpu_torch.train.synthetic import draw_synthetic, generate_synthetic_batch
 from raster_scenes import KERNEL_SCENES
 
 pytestmark = pytest.mark.cuda
@@ -62,6 +65,37 @@ def test_kernel_matches_plain(cuda, img_wh, cull):
     want = CR.rasterize_packed_reference(flat, bounds, attr, img_wh, img_wh)
     assert (want & 7).gt(0).float().mean() > 0.02
     assert torch.equal(got, want)
+
+
+def test_kernel_matches_plain_on_training_batch(cuda, monkeypatch):
+    """The render of one augmented synthetic training batch (B=16, 256²:
+    jittered cameras, vertex noise, back faces culled) launches the kernel
+    once, on inputs whose keys equal the plain version's."""
+    seen = []
+    real = renderer.rasterize_packed
+
+    def spy(planes, bounds, face_attr, img_h, img_w):
+        seen.append((planes, bounds, face_attr, img_h, img_w))
+        return real(planes, bounds, face_attr, img_h, img_w)
+    monkeypatch.setattr(renderer, "rasterize_packed", spy)
+    assets = load_synthetic_assets(device=cuda)
+    cfg = TrainConfig(batch_size=16)
+    g = torch.Generator().manual_seed(0)
+    pose = (torch.randn(16, 72, generator=g) * 0.2).to(cuda)
+    shape = (torch.randn(16, 10, generator=g) * 0.5).to(cuda)
+    draws = draw_synthetic(torch.Generator(device=cuda).manual_seed(0), 16, assets.num_verts,
+                           cfg, cuda)
+    before = CR.packed_raster_kernel.launches
+    batch = generate_synthetic_batch(draws, pose, shape, assets, cfg)
+    assert CR.packed_raster_kernel.launches == before + 1 and len(seen) == 1
+    assert torch.isfinite(batch.proxy).all() and batch.proxy[..., 0].mean() > 0.02
+    planes, bounds, face_attr, img_h, img_w = seen[0]
+    killed = (planes[:, :, 0] == torch.tensor([0.0, 0.0, -1.0], device=cuda)).all(dim=-1)
+    assert 0.2 < killed.float().mean() < 0.8                   # back faces culled
+    flat, attr = CR.pack_planes(planes, face_attr)
+    bounds = bounds.to(torch.int32).contiguous()
+    key = CR.packed_raster_kernel(flat, bounds, attr, img_h, img_w)
+    assert torch.equal(key, CR.rasterize_packed_reference(flat, bounds, attr, img_h, img_w))
 
 
 def test_render_silhouette_goes_through_kernel(cuda):

@@ -34,3 +34,26 @@ def test_no_forbidden_imports(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _module_level_imports(node):
+    """Modules imported outside every function body of `node`."""
+    for child in ast.iter_child_nodes(node):
+        if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(child, ast.Import):
+            yield from (alias.name for alias in child.names)
+        elif isinstance(child, ast.ImportFrom) and child.level == 0:
+            yield child.module
+        yield from _module_level_imports(child)
+
+
+def test_yaml_is_imported_only_inside_functions():
+    """PyYAML is imported lazily (`config.load_config` with a YAML file):
+    the card's machine has none, and `chip_smoke.py` passes overrides only."""
+    lazy = []
+    for path in FILES:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        assert "yaml" not in [m.split(".")[0] for m in _module_level_imports(tree)], path
+        lazy += [path.name for m in _imported_modules(path) if m == "yaml"]
+    assert lazy == ["config.py"]

@@ -24,12 +24,13 @@ from straps_tpu.config import PredictConfig as JaxPredictConfig
 from straps_tpu.models import build_regressor
 from straps_tpu.predict import pipeline as JP
 from straps_tpu.smpl import load_synthetic_assets
-from straps_tpu_torch.cli import run_predict
-from straps_tpu_torch.config import PredictConfig
+from straps_tpu_torch.cli import run_predict, run_train
+from straps_tpu_torch.config import PredictConfig, TrainConfig
 from straps_tpu_torch.data.native_io import load_npy_batch
 from straps_tpu_torch.models.convert import flax_to_torch_state_dict, state_dict_to_tensors
 from straps_tpu_torch.predict import pipeline as TP
 from straps_tpu_torch.smpl import assets as TAS
+from straps_tpu_torch.train.loop import train
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 IMG = 64
@@ -187,6 +188,13 @@ def test_cuda_entry_points_without_card_raise(inputs, tmp_path, monkeypatch):
         lambda: TP.load_cached_proxies(inputs[0], IMG),
         lambda: TP.predict_3d(PredictConfig(input_dir=inputs[0], out_dir=str(tmp_path))),
         lambda: run_predict.main(["--input", inputs[0], "--out-dir", str(tmp_path)]),
+        lambda: train(TrainConfig(img_wh=IMG, batch_size=2,
+                                  model_save_path=str(tmp_path / "ckpt" / "m"),
+                                  log_path=str(tmp_path / "logs" / "l.pkl")),
+                      assets=cpu_assets),
+        lambda: run_train.main(["--synthetic-data", f"img_wh={IMG}", "batch_size=2",
+                                f"log_path={tmp_path / 'logs' / 'l.pkl'}",
+                                f"model_save_path={tmp_path / 'ckpt' / 'm'}"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

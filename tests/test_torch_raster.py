@@ -284,6 +284,22 @@ def test_faceid_plain_sub_batches_and_ragged_size(monkeypatch):
         np.testing.assert_array_equal(d.numpy(), depth.numpy())
 
 
+def test_packed_plain_sub_batches(monkeypatch):
+    """The plain packed version gives the same keys in sub-batches (the
+    size a B=140 training batch at 256² is compared in)."""
+    screen, z, faces = make_triangle_scene()
+    screens = np.stack([screen, screen + 3.0, screen - 2.0]).astype(np.float32)
+    zs = np.stack([z, z * 2.0, z + 1.0]).astype(np.float32)
+    pt, _ = _torch_planes(screens, zs, faces, cull=False)
+    flat, attr = CR.pack_planes(pt, torch.tensor([1, 2]))
+    bounds = TR.face_chunk_row_bounds(torch.as_tensor(screens), torch.as_tensor(faces), 128, 61)
+    whole = CR.rasterize_packed_reference(flat, bounds, attr, 61, 45)
+    monkeypatch.setattr(CR, "_PLAIN_TEMP_BYTES", 2 * 128 * 61 * 45 * 4)   # two bodies at a time
+    np.testing.assert_array_equal(
+        CR.rasterize_packed_reference(flat, bounds, attr, 61, 45).numpy(), whole.numpy())
+    assert whole.shape == (3, 61, 45) and len(np.unique(whole.numpy() & 7)) == 3
+
+
 def test_render_rgb_vs_jax(smpl_scenes):
     assets, verts, cam_t, K, _, _ = smpl_scenes
     colors = np.random.RandomState(3).rand(np.asarray(assets.faces).shape[0], 3).astype(np.float32)
