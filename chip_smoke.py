@@ -38,21 +38,23 @@ Phases, each of which raises on failure:
        steps, so exactly 6 packed-kernel launches; losses and metrics
        finite, the checkpoint written and read back with
        `weights_only=True`, the loss log-variances moved; the packed kernel
-       held against its plain version, bit for bit, on the render of one
-       augmented training batch (B=140, jittered cameras, vertex noise,
-       back faces culled); then one train step at 64x64, B=8, float32 on
-       the card and on the CPU from the same state and draws, which must
-       agree (loss, gradients, BatchNorm running statistics);
+       held against its plain version, bit for bit, on the inputs of the
+       CLI's first train launch (its corpus batch and draws: B=140,
+       jittered cameras, vertex noise, back faces culled); then one train
+       step at 64x64, B=8, float32 on the card and on the CPU from the same
+       state and draws, which must agree (loss, gradients, BatchNorm
+       running statistics);
   5. times: each kernel at B=64, 256x256 (packed: culled eval bodies;
      face-id: unculled, the predict renders' own bodies), beside its bound
      and its plain version; the evaluation's and the predict's wall time;
      proxy -> SMPL inferences/s at batch 256; a warm train step at batch
-     140 (median of 12 after 3 warm-up steps), split into the synthetic
-     batch and the forward/backward/update, three steps under the
-     profiler, and the packed kernel on the training bodies beside its
-     bound.  The `kernels` line gives the packed kernel's time on the
-     training bodies and its launches on the evaluation and training
-     paths.
+     140 on the CLI's first train batch (median of 12 after 3 warm-up
+     steps), split into the synthetic batch and the forward/backward/
+     update, three steps under the profiler, and the packed kernel on that
+     batch's render beside its bound.  The `kernels` line gives the packed
+     kernel's B=64 eval-body numbers under `ms`, `plain_ms` and `bound_ms`,
+     its first-train-batch numbers under `train_*`, and its launches on
+     the evaluation and training paths; `inputs` names the bodies.
 The card's name and power limit come two lines before the last, the
 `kernels` JSON on the line before the last, the result JSON last.
 Exits non-zero without a card, and outside a checkout of the repository.
@@ -307,22 +309,31 @@ def decode_png(path):
     return rows[:, 1:].reshape(h, w, channels)
 
 
-def training_kernel_inputs(assets, cfg, seed):
+def first_train_batch(cfg, corpus_path, device):
+    """The pose and shape batch of the first train step of epoch 0 as
+    `train()` draws it from the corpus at `corpus_path`, and that step's
+    draws' generator."""
+    from straps_tpu_torch.data.dataset import SyntheticTrainingDataset, epoch_batches
+
+    ds = SyntheticTrainingDataset(corpus_path, cfg.params_from)
+    b = next(epoch_batches(ds, cfg.batch_size, np.random.RandomState(cfg.seed)))
+    generator = torch.Generator(device=device).manual_seed(cfg.seed * 100003)
+    return (torch.as_tensor(b["pose"], device=device),
+            torch.as_tensor(b["shape"], device=device), generator)
+
+
+def training_kernel_inputs(assets, cfg, corpus_path):
     """The packed kernel's inputs (flat planes, int32 bounds, attributes)
-    as `generate_synthetic_batch` gives them on one augmented training
-    batch of `cfg.batch_size` seeded bodies: the arguments it hands the
-    rasteriser, recorded on their way in."""
+    of the first train step of epoch 0 on the corpus at `corpus_path`: the
+    arguments `generate_synthetic_batch` hands the rasteriser on that
+    step's bodies and draws, recorded on their way in."""
     from straps_tpu_torch.render import cuda_raster as CR
     from straps_tpu_torch.render import renderer
     from straps_tpu_torch.train.synthetic import draw_synthetic, generate_synthetic_batch
 
     dev = assets.device
-    B = cfg.batch_size
-    g = torch.Generator().manual_seed(seed)
-    pose = (torch.randn(B, 72, generator=g) * 0.2).to(dev)
-    shape = (torch.randn(B, 10, generator=g) * 0.5).to(dev)
-    draws = draw_synthetic(torch.Generator(device=dev).manual_seed(seed), B,
-                           assets.num_verts, cfg, dev)
+    pose, shape, generator = first_train_batch(cfg, corpus_path, dev)
+    draws = draw_synthetic(generator, cfg.batch_size, assets.num_verts, cfg, dev)
     seen = []
     real = renderer.rasterize_packed
 
@@ -701,10 +712,12 @@ def main() -> int:
         raise AssertionError("a loss log-variance did not move")
     del state, tracker, saved
 
-    # The packed kernel against its plain version on the render of one
-    # augmented training batch at the released configuration.
-    flat_t, bounds_t, attr_t = training_kernel_inputs(assets, train_cfg, seed=7)
-    errs.append(compare_kernel(f"training batch B={B} 256x256 culled, jittered cameras, "
+    # The packed kernel against its plain version on the inputs of the
+    # CLI's first train launch: its corpus, batch and draws.
+    corpus = os.path.join(train_dir, os.path.dirname(train_cfg.log_path),
+                          "synthetic_train.npz")
+    flat_t, bounds_t, attr_t = training_kernel_inputs(assets, train_cfg, corpus)
+    errs.append(compare_kernel(f"first train batch B={B} 256x256 culled, jittered cameras, "
                                f"vertex noise", flat_t, bounds_t, attr_t, 256, 256))
     max_abs_err = max(errs)
 
@@ -776,12 +789,10 @@ def main() -> int:
     # The train step at the released configuration (batch 140, 256x256,
     # bfloat16 encoder): the whole step as the loop runs it (draws,
     # synthetic batch, forward, backward, Adam, one host pull), then its
-    # two halves, then three steps under the profiler.
+    # two halves, then three steps under the profiler, on the bodies of the
+    # CLI's first train batch with its generator's draws.
     _, train_assets, state, train_step, _ = build_training(train_cfg, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(11)
-    g = torch.Generator().manual_seed(11)
-    pose = (torch.randn(B, 72, generator=g) * 0.2).to(dev)
-    shape = (torch.randn(B, 10, generator=g) * 0.5).to(dev)
+    pose, shape, gen = first_train_batch(train_cfg, corpus, dev)
 
     def draws():
         return draw_synthetic(gen, B, train_assets.num_verts, train_cfg, dev)
@@ -814,15 +825,15 @@ def main() -> int:
               f"{100 * busy_ms / 3 / step_med:.1f}% of the median unprofiled step")
     del state, batch_t
 
-    # The packed kernel on the training bodies (the `kernels` line's
-    # numbers: the training step is its main consumer).
+    # The packed kernel on the first train batch (the `kernels` line's
+    # `train_*` numbers: the training step is its main consumer).
     train_kernel_ms = cuda_ms(
         lambda: CR.packed_raster_kernel(flat_t, bounds_t, attr_t, 256, 256), 200)
     train_plain_ms = cuda_ms(
         lambda: CR.rasterize_packed_reference(flat_t, bounds_t, attr_t, 256, 256), 2)
     train_bound_ms, train_bound_by = kernel_bound_ms(flat_t, bounds_t, 256, 256,
                                                      attr_t.numel() * 4, 4)
-    print(f"times on {card}: packed raster kernel B={B} 256x256 on a training batch "
+    print(f"times on {card}: packed raster kernel B={B} 256x256 on the first train batch "
           f"(culled, jittered cameras, vertex noise) {train_kernel_ms:.4f} ms (bound "
           f"{train_bound_ms:.4f} ms by {train_bound_by}, "
           f"{100 * train_bound_ms / train_kernel_ms:.1f}% of it); plain version "
@@ -834,12 +845,16 @@ def main() -> int:
         "name": "raster_packed", "route": "cuda",
         "source": "straps_tpu_torch/csrc/raster_packed.cu",
         "replaces": "straps_tpu/render/pallas_raster.py:106",
+        "inputs": f"ms, plain_ms, bound_ms: B=64 256x256 culled eval bodies; train_*: "
+                  f"B={B} 256x256 first train batch (culled, jittered cameras, vertex noise)",
         "launches": launches + train_launches, "max_abs_err": max_abs_err,
-        "ms": train_kernel_ms, "plain_ms": train_plain_ms, "bound_ms": train_bound_ms,
-        "bound_by": train_bound_by, "library_ms": None}, {
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "train_ms": train_kernel_ms, "train_plain_ms": train_plain_ms,
+        "train_bound_ms": train_bound_ms, "train_bound_by": train_bound_by}, {
         "name": "raster_faceid", "route": "cuda",
         "source": "straps_tpu_torch/csrc/raster_faceid.cu",
         "replaces": "straps_tpu/render/pallas_raster.py:50",
+        "inputs": f"B={n} 256x256 unculled predict rend bodies",
         "launches": faceid_launches, "max_abs_err": max(faceid_errs), "ms": faceid_ms,
         "plain_ms": faceid_plain_ms, "bound_ms": faceid_bound_ms,
         "bound_by": faceid_bound_by, "library_ms": None}]}))

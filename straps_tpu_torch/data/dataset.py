@@ -3,7 +3,7 @@
 
 The whole corpus (a few MB) lives in host memory as two numpy arrays; each
 epoch is a shuffled index permutation from a `np.random.RandomState`, so the
-batch order is the JAX loop's, optionally sharded per host.
+batch order is the JAX loop's.
 """
 
 from typing import Dict, Iterator
@@ -52,24 +52,10 @@ class SyntheticTrainingDataset:
 
 def epoch_batches(dataset: SyntheticTrainingDataset, batch_size: int,
                   rng: np.random.RandomState, shuffle: bool = True,
-                  drop_last: bool = True,
-                  host_id: int = 0, num_hosts: int = 1
-                  ) -> Iterator[Dict[str, np.ndarray]]:
-    """Yield shuffled {pose (B,72), shape (B,10)} batches for one epoch.
-
-    With `num_hosts > 1` each host sees a disjoint interleaved shard of the
-    permutation (per-host data sharding for DCN multi-host training).
-    """
+                  drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
+    """Yield shuffled {pose (B,72), shape (B,10)} batches for one epoch."""
     n = len(dataset)
     order = rng.permutation(n) if shuffle else np.arange(n)
-    order = order[host_id::num_hosts]
-    if num_hosts > 1:
-        # Every host must yield the SAME number of (same-shaped) batches:
-        # with n % num_hosts != 0 the interleaved shards differ by one
-        # sample, so one host would launch a sharded step whose collective
-        # the others never match — the DCN job hangs. Truncate to the
-        # common shard length (at most num_hosts-1 samples dropped/epoch).
-        order = order[:n // num_hosts]
     num_full = len(order) // batch_size
     end = num_full * batch_size if drop_last else len(order)
     for start in range(0, end, batch_size):

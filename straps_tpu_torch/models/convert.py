@@ -11,8 +11,6 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from straps_tpu_torch.train.state import create_train_state
-
 
 def flax_to_torch_state_dict(variables: dict) -> Dict[str, np.ndarray]:
     """flax `{"params": ..., "batch_stats": ...}` of `SingleInputRegressor`
@@ -85,6 +83,10 @@ def train_state_from_flax(params: dict, batch_stats: dict, log_vars: Dict[str, o
     the `log_vars` dict of scalars) -> this package's `TrainState`: the
     weights and BatchNorm statistics loaded into `model` (strict), the
     log-variances as float32 leaf tensors, a fresh Adam at step 0."""
+    # Imported here: the rest of this module, which the predict path loads
+    # weights through, stays below the training layer.
+    from straps_tpu_torch.train.state import create_train_state
+
     device = device or next(model.parameters()).device
     sd = flax_to_torch_state_dict({"params": params, "batch_stats": batch_stats})
     model.load_state_dict(state_dict_to_tensors(sd), strict=True)

@@ -48,6 +48,21 @@ def _module_level_imports(node):
         yield from _module_level_imports(child)
 
 
+LOWER_LAYERS = ("models", "smpl", "render", "geometry")
+
+
+@pytest.mark.parametrize("layer", LOWER_LAYERS)
+def test_lower_layers_do_not_import_training_at_module_level(layer):
+    """The predict and eval paths load weights and render through these
+    layers; importing them must not pull in the training state or Adam."""
+    for path in sorted((ROOT / "straps_tpu_torch" / layer).rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        bad = [m for m in _module_level_imports(tree)
+               if m.startswith(("straps_tpu_torch.train", "straps_tpu_torch.losses",
+                                "straps_tpu_torch.augment"))]
+        assert not bad, f"{path.relative_to(ROOT)} imports {bad} at module level"
+
+
 def test_yaml_is_imported_only_inside_functions():
     """PyYAML is imported lazily (`config.load_config` with a YAML file):
     the card's machine has none, and `chip_smoke.py` passes overrides only."""
