@@ -44,6 +44,20 @@ Phases, each of which raises on failure:
        step at 64x64, B=8, float32 on the card and on the CPU from the same
        state and draws, which must agree (loss, gradients, BatchNorm
        running statistics);
+     - the predict CLI from 16 PNG images (`--silh-from pointrend`; 8 at
+       640x480 and 8 at 1024x768, lit synthetic bodies over seeded noise,
+       written by the port's PNG writer) through Keypoint-RCNN and
+       PointRend R50-FPN at full width (512 frame, 800x800 detectors, 512
+       proposals, 8 detections, 5 subdivision steps; detectron2 pickles of
+       the port's seeded init with the person logit raised), the regressor
+       at 256x256: every image has detections, npy outputs finite, exactly
+       2 face-id launches, the face-id kernel bit for bit on the inputs of
+       those two launches; a rerun over the proxies the run cached gives
+       identical npy outputs; both detectors on the card and on the CPU on
+       2 of the images at 256x256, float32 (the CPU run's NMS decisions
+       clear of their thresholds; FPN features and RPN outputs within 1e-4
+       of each tensor's largest value, boxes 0.1 px, keypoints 0.1 px,
+       masks 99% of pixels);
   5. times: each kernel at B=64, 256x256 (packed: culled eval bodies;
      face-id: unculled, the predict renders' own bodies), beside its bound
      and its plain version; the evaluation's and the predict's wall time;
@@ -54,9 +68,14 @@ Phases, each of which raises on failure:
      batch's render beside its bound.  The `kernels` line gives the packed
      kernel's B=64 eval-body numbers under `ms`, `plain_ms` and `bound_ms`,
      its first-train-batch numbers under `train_*`, and its launches on
-     the evaluation and training paths; `inputs` names the bodies.
-The card's name and power limit come two lines before the last, the
-`kernels` JSON on the line before the last, the result JSON last.
+     the evaluation and training paths; `inputs` names the bodies; the
+     face-id entry's `image_path_launches` are the image predict's.  The
+     image slice: each detector's forward on a chunk of 8 at 800x800 in
+     float32 and with the bfloat16 backbone, its peak memory and NMS's
+     share, and the warm image predict under the profiler.
+The whole run's wall time, then the card's name and power limit come
+before the `kernels` JSON, which is on the line before the last; the result
+JSON is last.
 Exits non-zero without a card, and outside a checkout of the repository.
 """
 
@@ -473,7 +492,222 @@ def profile_run(card, label, n, unit, run, top=10, host_top=8):
     return busy_ms
 
 
+
+# The detector slice (phase 4d): a 512 frame, detectron2's 800 test size.
+DET_FRAME, DET_TEST = 512, 800
+DET_SEED = 1
+
+
+def write_detector_pngs(assets, in_dir, seed=0):
+    """16 PNGs through the port's own writer: lit renders of synthetic
+    bodies (upright, camera scale 0.8) over seeded noise, 8 at 640x480
+    (padded to 640², a non-integer resize to 512) and 8 at 1024x768
+    (padded to 1024², cv2's exact-2x route).  Returns the names."""
+    from straps_tpu_torch.render.vis import render_body_vis_batch
+    from straps_tpu_torch.smpl.model import smpl_forward_axis_angle
+    from straps_tpu_torch.utils.png import write_png
+
+    dev = assets.device
+    g = torch.Generator().manual_seed(seed)
+    names = []
+    for w, h in ((640, 480), (1024, 768)):
+        poses = torch.randn(8, 72, generator=g) * 0.2
+        poses[:, :3] = 0.0
+        verts = smpl_forward_axis_angle(assets, (torch.randn(8, 10, generator=g) * 0.5).to(dev),
+                                        poses.to(dev)).vertices
+        cam = torch.tensor([0.8, 0.0, 0.0]) + torch.randn(8, 3, generator=g) * 0.03
+        noise = torch.randint(0, 256, (8, w, w, 3), generator=g, dtype=torch.uint8)
+        imgs = render_body_vis_batch(verts, cam.to(dev), assets, img_wh=w, image=noise.to(dev),
+                                     rotate_x180=True).cpu().numpy()
+        top = (w - h) // 2
+        for i in range(8):
+            names.append(f"{w}x{h}_{i}")
+            write_png(os.path.join(in_dir, f"{names[-1]}.png"), imgs[i, top:top + h])
+    return names
+
+
+def person_biased(state, cls_bias=6.0, mask_bias=1.5):
+    """Seeded random detectors that find people: the person class logit
+    raised (the 80-class PointRend then scores a person ~0.8, not ~0.01),
+    and the person masks' coarse and point predictions raised."""
+    out = dict(state)
+    for key, n in (("roi_heads.box_predictor.cls_score.bias", (1, cls_bias)),
+                   ("roi_heads.mask_coarse_head.prediction.bias", (49, mask_bias)),
+                   ("roi_heads.mask_point_head.predictor.bias", (1, mask_bias))):
+        if key in out:
+            b = out[key].clone()
+            b[:n[0]] += n[1]
+            out[key] = b
+    return out
+
+
+def write_detector_pkls(d, seed=DET_SEED):
+    """detectron2 pickles of the two detectors from the port's seeded init
+    (`person_biased`): (keypoint pkl, PointRend pkl)."""
+    from straps_tpu_torch.perception import rcnn
+    from straps_tpu_torch.perception.convert_d2 import save_d2_pkl
+
+    paths = []
+    for cls, s, name in ((rcnn.KeypointRCNN, 2 * seed, "kp.pkl"),
+                         (rcnn.PointRendRCNN, 2 * seed + 1, "pr.pkl")):
+        with torch.device("meta"):
+            model = cls()
+        rcnn.init_random_weights(model, torch.Generator().manual_seed(s))
+        paths.append(os.path.join(d, name))
+        save_d2_pkl(paths[-1], person_biased(model.state_dict()))
+    return paths
+
+
+def load_detector(kind, pkl, device, **kw):
+    from straps_tpu_torch.perception import rcnn
+    from straps_tpu_torch.perception.convert_d2 import load_d2_pkl, load_detector_state
+
+    with torch.device("meta"):
+        model = (rcnn.KeypointRCNN if kind == "keypoint" else rcnn.PointRendRCNN)(
+            output_size=DET_FRAME, **kw)
+    return load_detector_state(model, load_d2_pkl(pkl), device)
+
+
+def nms_decisions_clear(calls, margin=1e-4):
+    """True when no NMS decision that shapes an output lies within `margin`
+    of its IoU threshold (a kept box against a later candidate: harmless
+    only where the candidate was not kept and another kept box suppresses
+    it by more than the margin, or it comes after the last output)."""
+    from straps_tpu_torch.perception.ops import pairwise_iou
+
+    for boxes, scores, thr, n, idx, valid in calls:
+        for b in range(boxes.shape[0]):
+            kept = idx[b][valid[b]]
+            pos = torch.empty(scores.shape[1], dtype=torch.int64, device=scores.device)
+            pos[torch.sort(-scores[b], stable=True).indices] = torch.arange(
+                scores.shape[1], device=scores.device)
+            live = torch.isfinite(scores[b]).nonzero().flatten()
+            iou = pairwise_iou(boxes[b][kept], boxes[b][live])
+            later = pos[live][None, :] > pos[kept][:, None]
+            near = ((iou - thr).abs() <= margin) & later
+            firm = ((iou > thr + margin) & later).any(0)
+            last = pos[kept].max() if len(kept) == n else scores.shape[1]
+            for _, j in near.nonzero().tolist():
+                if bool(torch.isin(live[j], kept)) or not (firm[j] or pos[live[j]] > last):
+                    return False
+    return True
+
+
+def detector_card_vs_cpu(pkls, images, test_size=256):
+    """Both detectors on the card and on the CPU, float32, on the same
+    images at `test_size`: the FPN features and RPN outputs as relative
+    errors (of each tensor's largest value), the detections as the JAX
+    parity tests hold them (boxes 0.1 px, keypoints 0.1 px, masks by the
+    share of equal pixels).  The CPU run's NMS decisions must clear their
+    thresholds by 1e-4.  Returns one line per detector."""
+    from straps_tpu_torch.perception import ops
+    from straps_tpu_torch.perception.frontend import pil_bilinear_resize_u8
+    from straps_tpu_torch.perception.rcnn import normalise_image_device
+
+    lines = []
+    for kind, pkl in zip(("keypoint", "pointrend"), pkls):
+        res = {}
+        for device in ("cuda", "cpu"):
+            model = load_detector(kind, pkl, device)
+            x = normalise_image_device(pil_bilinear_resize_u8(images.to(device), test_size,
+                                                              test_size))
+            calls, real = [], ops.nms_fixed
+
+            def nms(boxes, scores, thr, n, **kw):
+                idx, valid = real(boxes, scores, thr, n, **kw)
+                calls.append((boxes, scores, thr, n, idx, valid))
+                return idx, valid
+            ops.nms_fixed = nms
+            try:
+                with torch.inference_mode():
+                    feats = model.backbone(x)
+                    rpn = model.proposal_generator.rpn_head(feats)
+                    out = model(x)
+            finally:
+                ops.nms_fixed = real
+            res[device] = ([f.cpu() for f in feats], [t.cpu() for t in rpn[0] + rpn[1]],
+                           {k: v.cpu() for k, v in out.items()}, calls)
+        (fk, rk, ok, _), (fc, rc, oc, calls) = res["cuda"], res["cpu"]
+        clear = nms_decisions_clear(calls)
+        d_feat = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(fk, fc))
+        d_rpn = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(rk, rc))
+        valid = oc["valid"]
+        same_valid = torch.equal(ok["valid"], valid)
+        d_box = float((ok["boxes"] - oc["boxes"])[valid].abs().max()) if valid.any() else 0.0
+        line = (f"reference check, {kind} detector on {images.shape[0]} images at "
+                f"{test_size}x{test_size} f32, card vs CPU: NMS decisions clear of their "
+                f"thresholds {clear}, FPN features {d_feat:.3e} and RPN outputs {d_rpn:.3e} of "
+                f"each tensor's largest (bound 1e-4), valid detections equal {same_valid} "
+                f"({int(valid.sum())}), boxes {d_box:.3e} px (bound 0.1)")
+        ok_all = clear and d_feat <= 1e-4 and d_rpn <= 1e-4 and same_valid and d_box <= 0.1
+        if kind == "keypoint":
+            near = ((ok["keypoints"] - oc["keypoints"]).abs().amax(-1) < 0.1)[valid]
+            share = float(near.float().mean()) if valid.any() else 1.0
+            line += f", keypoints within 0.1 px {share:.4f} (bound 0.9)"
+            ok_all = ok_all and share >= 0.9
+        else:
+            agree = float((ok["masks"] == oc["masks"])[valid].float().mean()) if valid.any() else 1.0
+            line += f", mask pixels equal {agree:.5f} (bound 0.99)"
+            ok_all = ok_all and agree > 0.99
+        lines.append(line)
+        if not ok_all or not valid.any():
+            raise AssertionError(line)
+    return lines
+
+
+def detector_times(card, pkls, images):
+    """Per detector, at the full configuration (800² test size, 512
+    proposals, 8 detections, 5 subdivision steps) on one chunk of 8 of
+    `images`: the CUDA-synchronised forward in float32 and with the
+    bfloat16 backbone (median of 5 after a warm-up), peak device memory,
+    and NMS's share of one forward (each NMS call fenced by
+    synchronisations) with its host synchronisations."""
+    from straps_tpu_torch.perception import ops
+    from straps_tpu_torch.perception.frontend import pil_bilinear_resize_u8
+    from straps_tpu_torch.perception.rcnn import normalise_image_device
+
+    x = normalise_image_device(pil_bilinear_resize_u8(images[:8], DET_TEST, DET_TEST))
+    for kind, pkl in zip(("keypoint", "pointrend"), pkls):
+        for dtype in (None, "bfloat16"):
+            model = load_detector(kind, pkl, "cuda", backbone_dtype=dtype)
+            torch.cuda.reset_peak_memory_stats()
+            with torch.inference_mode():
+                times = synced_ms(lambda: model(x), warm=1, reps=5)
+                # The stages by differences of minimums: the host's jitter
+                # (tens of ms between calls) only ever adds.
+                trunk = min(synced_ms(lambda: model.trunk(x), warm=0, reps=5))
+                with torch.autocast("cuda", dtype=torch.bfloat16, enabled=dtype is not None):
+                    bb = min(synced_ms(lambda: model.backbone(x), warm=0, reps=5))
+                nms_ms, real = [], ops.nms_fixed
+
+                def timed(*args, **kw):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = real(*args, **kw)
+                    torch.cuda.synchronize()
+                    nms_ms.append((time.perf_counter() - t0) * 1e3)
+                    return out
+                ops.nms_fixed = timed
+                syncs0 = dict(ops.NMS_STATS)
+                try:
+                    fenced = synced_ms(lambda: model(x), warm=0, reps=1)[0]
+                finally:
+                    ops.nms_fixed = real
+            syncs = {k: ops.NMS_STATS[k] - syncs0[k] for k in syncs0}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            med = float(np.median(times))
+            print(f"times on {card}: {kind} R50-FPN forward, chunk of 8 at {DET_TEST}x{DET_TEST}, "
+                  f"backbone {dtype or 'float32'}: median {med:.2f} ms (min {min(times):.2f}, "
+                  f"max {max(times):.2f}; {8e3 / med:.2f} images/s), peak device memory "
+                  f"{peak:.2f} GiB; NMS {sum(nms_ms):.2f} ms of a fenced forward of "
+                  f"{fenced:.2f} ms ({100 * sum(nms_ms) / fenced:.1f}%) in {len(nms_ms)} calls, "
+                  f"{syncs['blocks']} blocks, {syncs['syncs']} host synchronisations; stages "
+                  f"(minimums of 5): backbone + FPN {bb:.2f} ms, RPN + proposals + box head + "
+                  f"detections {trunk - bb:.2f} ms, the {kind} head {min(times) - trunk:.2f} ms")
+            del model
+
 def main() -> int:
+    t_main = time.perf_counter()
     # 1. Device.
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -750,6 +984,109 @@ def main() -> int:
     if d_loss > 1e-4 or d_grad > 2e-3 or d_stats > 1e-4:
         raise AssertionError("the train step on the card disagrees with the CPU")
 
+    # 4d. The image slice: the predict CLI from 16 PNG images through
+    # Keypoint-RCNN + PointRend R50-FPN at full width (512 frame, 800²
+    # detectors, 512 proposals, 8 detections, 5 subdivision steps).
+    from straps_tpu_torch.perception import ops as det_ops
+    from straps_tpu_torch.predict import pipeline as pipe
+    img_dir = os.path.join(tmp.name, "images")
+    img_names = write_detector_pngs(assets, img_dir)
+    pkls = write_detector_pkls(tmp.name)
+    img_out = os.path.join(tmp.name, "predict_images")
+    # The CLI's stages, timed on the host clock (each fenced by a CUDA
+    # synchronisation), and the detectors' outputs, recorded on their way.
+    det_outs, stage_s, real = [], {}, {}
+
+    def timed(name, label, record=False):
+        real[name] = getattr(pipe, name)
+
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            stage_s[label] = stage_s.get(label, 0.0) + time.perf_counter() - t
+            if record:
+                det_outs.append(out)
+            return out
+        setattr(pipe, name, wrapper)
+    timed("read_images", "PNG reads, padding and resizes to 512")
+    timed("build_detector_models", "detectors built from their pickles")
+    timed("run_detector_batched", "both detectors (first calls)", record=True)
+    timed("load_regressor_variables", "regressor built and loaded")
+    timed("render_body_vis_batch", "body renders")
+    timed("write_png", "PNG writes")
+    image_argv = ["--input", img_dir, "--silh-from", "pointrend", "--keypoint-checkpoint",
+                  pkls[0], "--silhouette-checkpoint", pkls[1], "--checkpoint", ckpt_pred,
+                  "--device", "cuda"]
+    syncs0 = dict(det_ops.NMS_STATS)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            pred_img = run_predict.main(image_argv + ["--out-dir", img_out])
+    finally:
+        for name, fn in real.items():
+            setattr(pipe, name, fn)
+    torch.cuda.synchronize()
+    image_s = time.perf_counter() - t0
+    image_launches = CR.faceid_raster_kernel.launches
+    n_img = len(img_names)
+    print(f"slice: predict of {n_img} PNG images (8 at 640x480, 8 at 1024x768) through "
+          f"Keypoint-RCNN + PointRend R50-FPN at {DET_TEST}x{DET_TEST}, frame {DET_FRAME}, "
+          f"regressor at 256x256, renders included, first run: {image_s:.3f} s wall "
+          f"({n_img / image_s:.2f} images/s), face-id kernel launches {image_launches} "
+          f"(rend 1 + reposed 1), packed kernel launches {CR.packed_raster_kernel.launches}, "
+          f"NMS host synchronisations "
+          f"{det_ops.NMS_STATS['syncs'] - syncs0['syncs']}; of the wall: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in stage_s.items())
+          + f", the rest (assets, selection, proxies, regressor forward, npy writes) "
+          f"{image_s - sum(stage_s.values()):.3f} s")
+    kp_out, silh_out = det_outs
+    for i, name in enumerate(pred_img["names"]):
+        sil = np.load(os.path.join(img_out, "proxies", f"{name}_silhouette.npy"))
+        areas = silh_out["masks"][i][silh_out["valid"][i]].sum(axis=(1, 2)).tolist()
+        print(f"  {name}: keypoint detections {int(kp_out['valid'][i].sum())}, PointRend "
+              f"detections {int(silh_out['valid'][i].sum())} (mask areas {areas} px), "
+              f"selected silhouette {int(sil.sum())} px")
+    if image_launches != 2:
+        raise AssertionError(f"image predict renders: {image_launches} face-id launches, want 2")
+    if not all(kp_out["valid"].any(1)) or not all(silh_out["valid"].any(1)):
+        raise AssertionError("an image without detections")
+    for name in pred_img["names"]:
+        for key in ("verts", "shape", "pose_rotmats", "cam_wp"):
+            if not np.isfinite(np.load(os.path.join(img_out, f"{name}_{key}.npy"))).all():
+                raise AssertionError(f"non-finite {name}_{key}.npy")
+        for f in (f"rend_vis/rend_{name}.png", f"rend_vis/reposed_{name}.png",
+                  f"proxy_vis/silhouette_{name}.png", f"proxy_vis/joints2D_{name}.png"):
+            decode_png(os.path.join(img_out, f))
+    img_rend_in = vis_faceid_inputs(assets, pred_img["verts"], pred_img["cam_wp"], 256)
+    faceid_errs.append(compare_faceid(f"image predict rend B={n_img} 256x256", *img_rend_in,
+                                      256, 256))
+    faceid_errs.append(compare_faceid(
+        f"image predict reposed B={n_img} 256x256",
+        *vis_faceid_inputs(assets, pred_img["reposed_verts"],
+                           torch.tensor(REPOSED_CAM_WP).expand(n_img, 3), 256, rotate_x180=True),
+        256, 256))
+
+    # The cached proxies the run wrote reproduce its npy outputs.
+    cached_out = os.path.join(tmp.name, "predict_images_cached")
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_predict.main(["--input", os.path.join(img_out, "proxies"), "--checkpoint",
+                          ckpt_pred, "--out-dir", cached_out, "--device", "cuda", "--no-vis"])
+    same = all(np.array_equal(np.load(os.path.join(img_out, f"{name}_{key}.npy")),
+                              np.load(os.path.join(cached_out, f"{name}_{key}.npy")))
+               for name in pred_img["names"] for key in ("verts", "shape", "pose_rotmats",
+                                                          "cam_wp"))
+    print(f"slice: rerun over the {n_img} cached proxies: npy outputs identical {same}")
+    if not same:
+        raise AssertionError("the cached proxies do not reproduce the image predict")
+
+    # Both detectors on the card and on the CPU, on 2 of the images.
+    frames = pipe.read_images(img_dir, DET_FRAME, "cpu")[1][[0, 8]]       # one of each size
+    print("\n".join(detector_card_vs_cpu(pkls, frames)))
+
     # 5. Times.
     flat, bounds, attr = smpl_kernel_inputs(assets, 256, 64, seed=5)
     kernel_ms = cuda_ms(lambda: CR.packed_raster_kernel(flat, bounds, attr, 256, 256), 200)
@@ -785,6 +1122,22 @@ def main() -> int:
     predict_cfg = PredictConfig(input_dir=proxy_dir, checkpoint=ckpt_pred, out_dir=out_dir)
     profile_run(card, f"predict of {n} cached proxies at 256x256, renders included", n,
                 "images", lambda: predict_3d(predict_cfg, device="cuda"))
+
+
+    # The image slice: each detector's forward on a chunk of 8 (float32 and
+    # bfloat16 backbone), then the warm image predict under the profiler,
+    # with its peak device memory.
+    det_frames = pipe.read_images(img_dir, DET_FRAME, dev)[1]
+    detector_times(card, pkls, det_frames)
+    image_cfg = PredictConfig(input_dir=img_dir, checkpoint=ckpt_pred, silhouettes_from="pointrend",
+                              keypoint_checkpoint=pkls[0], silhouette_checkpoint=pkls[1],
+                              out_dir=img_out)
+    torch.cuda.reset_peak_memory_stats()
+    profile_run(card, f"predict of {n_img} PNG images through both detectors at "
+                f"{DET_TEST}x{DET_TEST}, renders included", n_img, "images",
+                lambda: predict_3d(image_cfg, device="cuda"))
+    print(f"times on {card}: image predict peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
     # The train step at the released configuration (batch 140, 256x256,
     # bfloat16 encoder): the whole step as the loop runs it (draws,
@@ -840,6 +1193,8 @@ def main() -> int:
           f"{train_plain_ms:.3f} ms")
     tmp.cleanup()
 
+    print(f"chip_smoke: the whole run took {time.perf_counter() - t_main:.1f} s wall "
+          f"(builds included)")
     print(card_line())
     print(json.dumps({"kernels": [{
         "name": "raster_packed", "route": "cuda",
@@ -854,10 +1209,12 @@ def main() -> int:
         "name": "raster_faceid", "route": "cuda",
         "source": "straps_tpu_torch/csrc/raster_faceid.cu",
         "replaces": "straps_tpu/render/pallas_raster.py:50",
-        "inputs": f"B={n} 256x256 unculled predict rend bodies",
+        "inputs": f"B={n} 256x256 unculled predict rend bodies; image_path_launches: the "
+                  f"predict from {n_img} PNG images (rend + reposed)",
         "launches": faceid_launches, "max_abs_err": max(faceid_errs), "ms": faceid_ms,
         "plain_ms": faceid_plain_ms, "bound_ms": faceid_bound_ms,
-        "bound_by": faceid_bound_by, "library_ms": None}]}))
+        "bound_by": faceid_bound_by, "library_ms": None,
+        "image_path_launches": image_launches}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,18 +1,22 @@
-"""Prediction CLI of the PyTorch port, over cached proxies:
+"""Prediction CLI of the PyTorch port, over cached proxies or images:
 
     python -m straps_tpu_torch.cli.run_predict --input ./demo_proxies \
         --checkpoint straps_model_checkpoint.tar --out-dir predict_out
+    python -m straps_tpu_torch.cli.run_predict --input ./photos --silh-from pointrend \
+        --keypoint-checkpoint kp.pkl --silhouette-checkpoint pr.pkl \
+        --checkpoint straps_model_checkpoint.tar --out-dir predict_out
 
-`--input` holds `<name>_silhouette.npy` + `<name>_joints2D.npy` per image.
-Runs on CUDA unless `--device cpu` is given.  The detector front end
-(`--silh-from pointrend|densepose` and the detector checkpoints) is not
-ported yet, and those flags are refused.
+With `--silh-from cached`, `--input` holds `<name>_silhouette.npy` +
+`<name>_joints2D.npy` per image; with `--silh-from pointrend`, PNG images,
+which go through Keypoint-RCNN and PointRend (detectron2 pickles).  Runs on
+CUDA unless `--device cpu` is given.  The DensePose front end
+(`--silh-from densepose`) is the next slice of the port and is refused.
 """
 
 import argparse
 
 from straps_tpu_torch.config import PredictConfig, apply_cli_overrides
-from straps_tpu_torch.predict.pipeline import predict_3d
+from straps_tpu_torch.predict.pipeline import DENSEPOSE_REFUSED, predict_3d
 
 _DETECTOR_FLAGS = ("keypoint_checkpoint", "silhouette_checkpoint", "allow_random_detectors")
 
@@ -20,22 +24,24 @@ _DETECTOR_FLAGS = ("keypoint_checkpoint", "silhouette_checkpoint", "allow_random
 def build_parser():
     parser = argparse.ArgumentParser(description="Predict 3D human shape/pose")
     parser.add_argument("--input", required=True,
-                        help="input dir (cached proxies: *_silhouette.npy + "
-                             "*_joints2D.npy)")
+                        help="input dir: *.png images (--silh-from pointrend) or "
+                             "cached proxies, *_silhouette.npy + *_joints2D.npy")
     parser.add_argument("--checkpoint", default=None,
                         help="reference-format .tar; none = seeded random weights")
     parser.add_argument("--silh-from", default="cached",
                         choices=["cached", "pointrend", "densepose"],
-                        help="only 'cached' is ported; the detector front ends are refused")
+                        help="'cached' proxies or the 'pointrend' detector front end; "
+                             "'densepose' is not ported yet and is refused")
     parser.add_argument("--out-dir", default="predict_out")
     parser.add_argument("--resnet-layers", type=int, default=18)
     parser.add_argument("--smpl-dir", default=None)
     parser.add_argument("--keypoint-checkpoint", default=None,
-                        help="detector front end, not ported: refused")
+                        help="detectron2 pkl of Keypoint-RCNN R50-FPN")
     parser.add_argument("--silhouette-checkpoint", default=None,
-                        help="detector front end, not ported: refused")
+                        help="detectron2 pkl of PointRend R50-FPN")
     parser.add_argument("--allow-random-detectors", action="store_true",
-                        help="detector front end, not ported: refused")
+                        help="run the detector front end with seeded RANDOM weights "
+                             "(meaningless proxies: smoke and throughput runs only)")
     parser.add_argument("--heatmap-mode", default="auto",
                         choices=["auto", "clean", "legacy"],
                         help="proxy heatmap distribution; 'auto' resolves "
@@ -46,23 +52,26 @@ def build_parser():
                         help="'cuda' (default; raises without a card) or 'cpu'")
     parser.add_argument("overrides", nargs="*",
                         help="key=value PredictConfig overrides (dotted "
-                             "paths), e.g. img_wh=128 model.compute_dtype=None")
+                             "paths), e.g. img_wh=128 model.compute_dtype=None "
+                             "detector_post_nms_topk=1000 detector_backbone_dtype=bfloat16")
     return parser
 
 
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.silh_from != "cached":
-        parser.error(f"--silh-from {args.silh_from}: the detector front end is not "
-                     f"ported to PyTorch yet; use --silh-from cached")
+    if args.silh_from == "densepose":
+        parser.error(f"--silh-from densepose: {DENSEPOSE_REFUSED}")
     given = [f"--{f.replace('_', '-')}" for f in _DETECTOR_FLAGS if getattr(args, f)]
-    if given:
-        parser.error(f"{' '.join(given)}: the detector front end is not ported to "
-                     f"PyTorch yet (these flags serve only --silh-from pointrend|densepose)")
+    if given and args.silh_from == "cached":
+        parser.error(f"{' '.join(given)}: these flags serve only the detector front end "
+                     f"(--silh-from pointrend)")
     cfg = PredictConfig(input_dir=args.input, checkpoint=args.checkpoint,
                         silhouettes_from=args.silh_from, out_dir=args.out_dir,
-                        smpl_dir=args.smpl_dir, heatmap_mode=args.heatmap_mode)
+                        smpl_dir=args.smpl_dir, heatmap_mode=args.heatmap_mode,
+                        keypoint_checkpoint=args.keypoint_checkpoint,
+                        silhouette_checkpoint=args.silhouette_checkpoint,
+                        allow_random_detectors=args.allow_random_detectors)
     cfg.model.resnet_layers = args.resnet_layers
     apply_cli_overrides(cfg, args.overrides)
     out = predict_3d(cfg, save_vis=not args.no_vis, device=args.device)

@@ -5,9 +5,8 @@ A copy of `straps_tpu/config.py`, with the defaults of the reference's
 released training configuration.  Left out: the JAX package's
 `RenderConfig` (here the tensors' device picks the rasteriser),
 `smpl_precision` (the port's SMPL is always full float32, TF32 off),
-`data_parallel_devices` (one card), the silhouette loss size (the
-silhouette task is not ported), and the detector checkpoints and budgets
-of the predict config.
+`data_parallel_devices` (one card) and the silhouette loss size (the
+silhouette task is not ported).
 """
 
 import ast
@@ -103,10 +102,29 @@ class TrainConfig:
 class PredictConfig:
     input_dir: str = "demo"
     checkpoint: Optional[str] = None
-    # 'cached' reads `*_silhouette.npy` + `*_joints2D.npy`; the detector
-    # front ends 'pointrend' and 'densepose' are not ported yet.
+    # 'cached' reads `*_silhouette.npy` + `*_joints2D.npy`; 'pointrend'
+    # runs the Keypoint-RCNN + PointRend front end on `*.png` images; the
+    # 'densepose' front end is not ported yet.
     silhouettes_from: str = "cached"
     proxy_dir: Optional[str] = None    # dir of cached proxies (default input_dir)
+    # detectron2 pickles of the two detectors, read by name.
+    keypoint_checkpoint: Optional[str] = None
+    silhouette_checkpoint: Optional[str] = None
+    # Without both checkpoints the front end refuses to run unless this is
+    # set: random detectors give meaningless proxies (smoke runs only).
+    allow_random_detectors: bool = False
+    # 'bfloat16' runs the detectors' backbones and FPNs under autocast and
+    # pools their ROIs in bfloat16; heads, NMS and masks stay float32.
+    detector_backbone_dtype: Optional[str] = None
+    # Detection budgets (defaults 512 proposals, 8 detections; detectron2
+    # keeps 1000 and 100) and detectron2's ROI_HEADS.SCORE_THRESH_TEST.
+    detector_post_nms_topk: Optional[int] = None
+    detector_max_detections: Optional[int] = None
+    detector_score_thresh: float = 0.05
+    # The frame images are resized to (the reference's 512) and detectron2's
+    # test size the detectors run at (800); smaller for CPU smoke runs.
+    detector_image_size: int = 512
+    detector_test_size: int = 800
     # 'bfloat16' casts the proxy before the encoder (binary channels stay
     # exact, gaussian heatmap channels round).  None keeps float32.
     proxy_input_dtype: Optional[str] = None

@@ -132,3 +132,12 @@ def batch_crop_and_resize(segs: torch.Tensor, joints2d: torch.Tensor, out_wh: in
     scale = torch.stack([_f32(out_wh, segs) / crop_w.to(torch.float32),
                          _f32(out_wh, segs) / crop_h.to(torch.float32)], dim=-1)
     return out, shifted * scale[:, None, :]
+
+
+def pad_to_square_params(height: int, width: int) -> Tuple[int, int]:
+    """(top, left) border widths that zero-pad an image to a square
+    (`utils/image_utils.py:6-21`): the same border on both sides, the
+    shorter side padded by half the difference, rounded down."""
+    if width < height:
+        return 0, (height - width) // 2
+    return (width - height) // 2, 0

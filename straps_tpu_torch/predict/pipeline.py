@@ -1,11 +1,12 @@
 """Batched inference rollout: proxies -> SMPL predictions, and the predict
-path over cached proxies (counterpart of `make_predict_fn`,
-`resolve_heatmap_mode`, `load_regressor_variables`, `load_cached_proxies`,
-`save_proxies` and `predict_3d` in `straps_tpu/predict/pipeline.py`).
+path over cached proxies or images (counterpart of
+`straps_tpu/predict/pipeline.py`).
 
 regressor -> rot6d -> SMPL -> reposed SMPL -> projection, in one call under
-`torch.inference_mode`.  The detector front end that builds proxies from
-images is not ported yet: `predict_3d` reads cached silhouettes and joints.
+`torch.inference_mode`.  The proxies come from cached silhouettes and
+joints, or from PNG images through the Keypoint-RCNN + PointRend detector
+front end (`detect_and_build_proxies`).  The DensePose front end is not
+ported yet.
 """
 
 import glob
@@ -18,6 +19,7 @@ import torch
 
 from straps_tpu_torch.config import PredictConfig
 from straps_tpu_torch.data.native_io import load_npy_batch
+from straps_tpu_torch.geometry.bbox import pad_to_square_params
 from straps_tpu_torch.geometry.camera import (
     orthographic_project, weak_perspective_to_camera_translation,
 )
@@ -27,13 +29,21 @@ from straps_tpu_torch.models.convert import load_reference_checkpoint
 from straps_tpu_torch.models.regressor import (
     SingleInputRegressor, build_regressor, init_random_weights,
 )
+from straps_tpu_torch.perception import rcnn
+from straps_tpu_torch.perception.convert_d2 import load_d2_pkl, load_detector_state
+from straps_tpu_torch.perception.frontend import (
+    run_detector_batched, select_keypoints, select_silhouette,
+)
 from straps_tpu_torch.predict.proxy import batch_silhouettes_joints_to_proxies
-from straps_tpu_torch.render.vis import proxy_vis_batch, render_body_vis_batch
+from straps_tpu_torch.render.vis import (
+    keypoints_vis, proxy_vis_batch, render_body_vis_batch, silhouette_overlay_vis,
+)
 from straps_tpu_torch.smpl.assets import SmplAssets, load_assets
 from straps_tpu_torch.smpl.model import select_joint_sets, smpl_forward
 from straps_tpu_torch.utils.checkpoints import load_checkpoint
 from straps_tpu_torch.utils.device import resolve_device
-from straps_tpu_torch.utils.png import write_png
+from straps_tpu_torch.utils.image import cv2_resize_linear_u8
+from straps_tpu_torch.utils.png import decode_png, write_png
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -156,6 +166,143 @@ def save_proxies(proxy_dir: str, names: Sequence[str], sils, joints) -> None:
         np.save(os.path.join(proxy_dir, f"{name}_joints2D.npy"), np.asarray(j, np.float32))
 
 
+DENSEPOSE_REFUSED = ("the DensePose front end (R101-FPN, the DensePose head and its IUV "
+                     "paste) is the next slice of the PyTorch port and is not ported yet; use "
+                     "the 'pointrend' front end or cached proxies")
+
+
+def build_detector_models(cfg: PredictConfig, output_size: int, device="cuda",
+                          seed: int = 0) -> Tuple[rcnn.KeypointRCNN, rcnn.PointRendRCNN]:
+    """The keypoint and silhouette detectors on `device` in eval mode, with
+    the config's budgets and backbone dtype, boxes and masks in an
+    `output_size` frame.  Each is built on the `meta` device and given its
+    detectron2 checkpoint's tensors, or seeded random weights where its
+    checkpoint is None."""
+    if cfg.silhouettes_from != "pointrend":
+        raise NotImplementedError(f"silhouettes_from={cfg.silhouettes_from!r}: "
+                                  f"{DENSEPOSE_REFUSED}")
+    dev = resolve_device(device)
+    kw = dict(output_size=output_size, backbone_dtype=cfg.detector_backbone_dtype,
+              score_thresh=float(cfg.detector_score_thresh))
+    if cfg.detector_post_nms_topk:
+        kw["post_nms_topk"] = int(cfg.detector_post_nms_topk)
+    if cfg.detector_max_detections:
+        kw["max_detections"] = int(cfg.detector_max_detections)
+    models = []
+    for i, (cls, ckpt) in enumerate(((rcnn.KeypointRCNN, cfg.keypoint_checkpoint),
+                                     (rcnn.PointRendRCNN, cfg.silhouette_checkpoint))):
+        with torch.device("meta"):
+            model = cls(**kw)
+        if ckpt:
+            models.append(load_detector_state(model, load_d2_pkl(ckpt), dev))
+        else:
+            rcnn.init_random_weights(model, torch.Generator().manual_seed(seed + i))
+            models.append(model.to(dev).eval())
+    return models[0], models[1]
+
+
+def read_images(input_dir: str, size: int, device) -> Tuple[List[str], torch.Tensor]:
+    """The folder's `*.png` images, sorted by name: each padded to a square
+    and resized to (size, size) as cv2's INTER_LINEAR does
+    (`predict_3D.py:97-108`) -> names and (N, size, size, 3) uint8 RGB on
+    `device`.  `.jpg` files are refused (no JPEG decoder is ported)."""
+    jpgs = sorted(glob.glob(os.path.join(input_dir, "*.jpg")))
+    if jpgs:
+        raise ValueError(f"JPEG inputs are not read by the PyTorch port (no JPEG decoder "
+                         f"yet; convert them to PNG): {jpgs}")
+    paths = sorted(glob.glob(os.path.join(input_dir, "*.png")))
+    if not paths:
+        raise FileNotFoundError(f"no images in {input_dir}")
+    names, images = [], []
+    for path in paths:
+        img = decode_png(path)
+        top, left = pad_to_square_params(*img.shape[:2])
+        img = np.pad(img, ((top, top), (left, left), (0, 0)))
+        images.append(cv2_resize_linear_u8(torch.as_tensor(img, device=device), size, size))
+        names.append(os.path.splitext(os.path.basename(path))[0])
+    return names, torch.stack(images)
+
+
+def detect_and_build_proxies(cfg: PredictConfig, build_vis: bool = True,
+                             heatmap_mode: str = "clean", device="cuda",
+                             size: int = rcnn.DEFAULT_IMAGE_SIZE,
+                             test_size: int = rcnn.DETECTOR_TEST_SIZE):
+    """The detector front end over `cfg.input_dir` (`predict_3D.py:97-126`):
+    images padded to square and resized to `size`; Keypoint-RCNN joints and
+    PointRend silhouettes at `test_size` (Pillow's bilinear resize on the
+    device), mapped back to the `size` frame; the largest centred instance
+    of each; the proxies.  The silhouettes and joints are written to
+    `<out_dir>/proxies` in `load_cached_proxies`' format.
+
+    Returns (names, (N, img_wh, img_wh, 18) proxies, vis): vis is None
+    without `build_vis`, else the image crops the proxies' cameras live in
+    (numpy, one per image) and the (N, size, size, 3) uint8 joint and
+    silhouette overlays.
+    """
+    dev = resolve_device(device)
+    missing = [name for name in ("keypoint_checkpoint", "silhouette_checkpoint")
+               if getattr(cfg, name) is None]
+    if missing:
+        if not cfg.allow_random_detectors:
+            raise ValueError(
+                f"detector checkpoint(s) not configured: {missing}. Random-init detectors "
+                f"produce garbage proxies; set --allow-random-detectors "
+                f"(allow_random_detectors=True) for structure/throughput smoke runs, or "
+                f"provide converted detectron2 checkpoints.")
+        warnings.warn(f"RANDOM-WEIGHT DETECTORS in use ({missing}): proxy representations "
+                      f"and all downstream SMPL predictions are meaningless.", UserWarning,
+                      stacklevel=2)
+    names, images = read_images(cfg.input_dir, size, dev)
+    kp_model, silh_model = build_detector_models(cfg, size, dev)
+    kp_out = run_detector_batched(kp_model, images, test_size)
+    silh_out = run_detector_batched(silh_model, images, test_size)
+    kps, sils = [], []
+    for i in range(len(names)):
+        kps.append(select_keypoints(kp_out, i, size, size))
+        sils.append(select_silhouette(silh_out, i)[0])
+    joints = [kp[:, :2] for kp in kps]
+    save_proxies(os.path.join(cfg.out_dir, "proxies"), names, sils, joints)
+    proxies, _ = batch_silhouettes_joints_to_proxies(
+        torch.as_tensor(np.stack(sils), device=dev), torch.as_tensor(np.stack(joints), device=dev),
+        cfg.img_wh, heatmap_mode=heatmap_mode)
+    if not build_vis:
+        return names, proxies, None
+    host = images.cpu().numpy()
+    vis = {"crops": [crop_image_like_proxy(sil, img) for sil, img in zip(sils, host)],
+           "joints_vis": keypoints_vis(images, torch.as_tensor(np.stack(kps), device=dev)),
+           "silhouette_vis": silhouette_overlay_vis(images,
+                                                    torch.as_tensor(np.stack(sils), device=dev))}
+    return names, proxies, vis
+
+
+def crop_image_like_proxy(sil: np.ndarray, img: np.ndarray,
+                          scale_factor: float = 1.2) -> np.ndarray:
+    """Crop `img` with the square silhouette-bbox crop the proxy uses
+    (float32 corner arithmetic truncated toward zero, as
+    `geometry/bbox.py::square_bbox_corners`), zero-padded where it leaves
+    the image, not resized: the crop the predicted camera lives in."""
+    sil = np.asarray(sil)
+    rows = np.flatnonzero(sil.any(axis=1))
+    cols = np.flatnonzero(sil.any(axis=0))
+    if len(rows) == 0 or len(cols) == 0:
+        r0 = r1 = c0 = c1 = 0
+    else:
+        r0, r1 = int(rows[0]), int(rows[-1])
+        c0, c1 = int(cols[0]), int(cols[-1])
+    f32 = np.float32
+    centre_r = f32(r0 + r1) / f32(2.0)
+    centre_c = f32(c0 + c1) / f32(2.0)
+    half = f32(max(r1 - r0, c1 - c0)) * f32(scale_factor) / f32(2.0)
+    top_r, top_c = int(centre_r - half), int(centre_c - half)
+    bot_r, bot_c = int(centre_r + half), int(centre_c + half)
+    out = np.zeros((max(bot_r - top_r, 1), max(bot_c - top_c, 1), img.shape[2]), img.dtype)
+    sr0, sc0 = max(top_r, 0), max(top_c, 0)
+    sr1, sc1 = min(bot_r, img.shape[0]), min(bot_c, img.shape[1])
+    if sr1 > sr0 and sc1 > sc0:
+        out[sr0 - top_r:sr1 - top_r, sc0 - top_c:sc1 - top_c] = img[sr0:sr1, sc0:sc1]
+    return out
+
+
 # The reference's reposed view: the T-pose at weak-perspective camera
 # [0.8, 0, -0.2], rotated 180 degrees about x (`predict_3D.py:172-176`).
 REPOSED_CAM_WP = (0.8, 0.0, -0.2)
@@ -163,27 +310,38 @@ REPOSED_CAM_WP = (0.8, 0.0, -0.2)
 
 def predict_3d(cfg: PredictConfig, save_vis: bool = True,
                device="cuda") -> Dict[str, np.ndarray]:
-    """Predict over cached proxies and write the outputs to `cfg.out_dir`.
+    """Predict over cached proxies (`silhouettes_from='cached'`) or over
+    the PNG images of `cfg.input_dir` through the detector front end
+    (`'pointrend'`: `detect_and_build_proxies` at `cfg.detector_image_size`
+    and `cfg.detector_test_size`), and write the outputs to `cfg.out_dir`.
 
     Per image `<name>`: `<name>_verts.npy`, `_shape.npy`,
     `_pose_rotmats.npy` and `_cam_wp.npy`; with `save_vis`, the renders
-    `rend_vis/rend_<name>.png` and `rend_vis/reposed_<name>.png` at
-    `cfg.img_wh` (lit as in the reference's pyrender scene) and
-    `proxy_vis/<name>.png`.  All bodies of a vis kind are rendered in one
-    face-id rasterisation.  Returns the predictions as numpy arrays, plus
-    `names`.  The 2D vertex scatter `verts_vis/` is not written (it needs
-    matplotlib).
+    `rend_vis/rend_<name>.png` (composited over the image crop the camera
+    lives in, for images) and `rend_vis/reposed_<name>.png` at `cfg.img_wh`
+    (lit as in the reference's pyrender scene), and `proxy_vis/<name>.png`
+    for cached proxies or `proxy_vis/silhouette_<name>.png` and
+    `proxy_vis/joints2D_<name>.png` for images.  All bodies of a vis kind
+    are rendered in one face-id rasterisation.  Returns the predictions as
+    numpy arrays, plus `names`.  The 2D vertex scatter `verts_vis/` is not
+    written (it needs matplotlib).
     """
-    if cfg.silhouettes_from != "cached":
-        raise NotImplementedError(
-            f"silhouettes_from={cfg.silhouettes_from!r}: the detector front end "
-            f"(pointrend/densepose) is not ported to PyTorch yet (ROADMAP.md, "
-            f"queue 1, item 11); use cached silhouettes and joints")
+    if cfg.silhouettes_from == "densepose":
+        raise NotImplementedError(f"silhouettes_from='densepose': {DENSEPOSE_REFUSED}")
+    if cfg.silhouettes_from not in ("cached", "pointrend"):
+        raise ValueError(f"silhouettes_from must be 'cached', 'pointrend' or 'densepose', "
+                         f"got {cfg.silhouettes_from!r}")
     dev = resolve_device(device)
     assets = load_assets(cfg.smpl_dir, device=dev)
     model, heatmap_mode = load_regressor_variables(cfg, assets, device=dev)
-    names, proxies = load_cached_proxies(cfg.proxy_dir or cfg.input_dir, cfg.img_wh,
-                                         heatmap_mode=heatmap_mode, device=dev)
+    if cfg.silhouettes_from == "cached":
+        names, proxies = load_cached_proxies(cfg.proxy_dir or cfg.input_dir, cfg.img_wh,
+                                             heatmap_mode=heatmap_mode, device=dev)
+        vis = None
+    else:
+        names, proxies, vis = detect_and_build_proxies(
+            cfg, build_vis=save_vis, heatmap_mode=heatmap_mode, device=dev,
+            size=cfg.detector_image_size, test_size=cfg.detector_test_size)
     out = make_predict_fn(model, assets, cfg.img_wh,
                           input_dtype=cfg.proxy_input_dtype)(proxies)
     out_np = {k: v.cpu().numpy() for k, v in out.items()}
@@ -195,16 +353,22 @@ def predict_3d(cfg: PredictConfig, save_vis: bool = True,
 
     if save_vis:
         with torch.inference_mode():
-            rend = render_body_vis_batch(out["verts"], out["cam_wp"], assets,
-                                         img_wh=cfg.img_wh)
+            rend = render_body_vis_batch(out["verts"], out["cam_wp"], assets, img_wh=cfg.img_wh,
+                                         image=None if vis is None else vis["crops"])
             reposed_cam = torch.tensor(REPOSED_CAM_WP, device=dev).expand(len(names), 3)
             reposed = render_body_vis_batch(out["reposed_verts"], reposed_cam, assets,
                                             img_wh=cfg.img_wh, rotate_x180=True)
-            proxy_img = proxy_vis_batch(proxies)
-        rend, reposed, proxy_img = (t.cpu().numpy() for t in (rend, reposed, proxy_img))
+            if vis is None:
+                proxy_imgs = {"": proxy_vis_batch(proxies)}
+            else:
+                proxy_imgs = {"silhouette_": vis["silhouette_vis"],
+                              "joints2D_": vis["joints_vis"]}
+        rend, reposed = rend.cpu().numpy(), reposed.cpu().numpy()
+        proxy_imgs = {k: v.cpu().numpy() for k, v in proxy_imgs.items()}
         for i, name in enumerate(names):
             write_png(os.path.join(cfg.out_dir, "rend_vis", f"rend_{name}.png"), rend[i])
             write_png(os.path.join(cfg.out_dir, "rend_vis", f"reposed_{name}.png"), reposed[i])
-            write_png(os.path.join(cfg.out_dir, "proxy_vis", f"{name}.png"), proxy_img[i])
+            for prefix, imgs in proxy_imgs.items():
+                write_png(os.path.join(cfg.out_dir, "proxy_vis", f"{prefix}{name}.png"), imgs[i])
     out_np["names"] = names
     return out_np

@@ -2,17 +2,20 @@
 
 The reference's pyrender scene is replaced by the face-id rasteriser plus
 a per-face lit colour: `render_body_vis` draws predicted bodies, lit
-(`style="lit"`) or body-part coloured (`style="parts"`), and `proxy_vis`
-the silhouette + summed heatmaps of a proxy.  Both write uint8 pixels; the
-files are PNGs from `utils/png.py`.  Batched over bodies on the tensors'
-device: one face-id rasterisation for a whole batch.
+(`style="lit"`) or body-part coloured (`style="parts"`), composited over
+images of any size (resized as cv2's float INTER_LINEAR does), and
+`proxy_vis` the silhouette + summed heatmaps of a proxy.  The detector
+overlays: `silhouette_overlay_vis` (cv2.addWeighted of the mask at half
+opacity) and `keypoints_vis` (cv2's filled circles of radius 5).  All
+write uint8 pixels; the files are PNGs from `utils/png.py`.  Batched over
+bodies on the tensors' device: one face-id rasterisation for a whole batch.
 
 Not ported yet: the matplotlib scatters (`scatter_vis`,
-`verts_over_image_vis`), compositing over an image of another size, and the
-detector-path overlays.
+`verts_over_image_vis`), the joint-index text of `keypoints_vis`
+(cv2.putText), and the DensePose overlays.
 """
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -22,6 +25,7 @@ from straps_tpu_torch.geometry.camera import (
 )
 from straps_tpu_torch.render.raster import face_ids_to_parts
 from straps_tpu_torch.render.renderer import render_face_ids
+from straps_tpu_torch.utils.image import cv2_resize_linear_f32
 from straps_tpu_torch.utils.png import write_png
 
 # Part colours (bg + 6 parts), RGB in [0,1].
@@ -128,8 +132,23 @@ def vis_camera(cam_wp: torch.Tensor, img_wh: int):
                                   device=cam_wp.device)
 
 
+def _vis_base(image, img_wh: int, dev) -> torch.Tensor:
+    """One composite base: float32 in [0, 1] (divided by 255 when its
+    largest value is above 1.5), grey replicated to RGB, resized to
+    (img_wh, img_wh) with cv2's float INTER_LINEAR when its size differs."""
+    base = torch.as_tensor(image, device=dev).to(torch.float32)
+    if base.amax() > 1.5:
+        base = base / 255.0
+    if base.dim() == 2:
+        base = base[..., None].expand(-1, -1, 3)
+    if tuple(base.shape[:2]) != (img_wh, img_wh):
+        base = cv2_resize_linear_f32(base, img_wh, img_wh)
+    return base
+
+
 def render_body_vis_batch(verts: torch.Tensor, cam_wp: torch.Tensor, assets,
-                          img_wh: int = 512, image: Optional[torch.Tensor] = None,
+                          img_wh: int = 512,
+                          image: Optional[Union[torch.Tensor, Sequence]] = None,
                           rotate_x180: bool = False, style: str = "lit"
                           ) -> torch.Tensor:
     """Shaded renders of a batch of bodies from predicted vertices and
@@ -137,9 +156,11 @@ def render_body_vis_batch(verts: torch.Tensor, cam_wp: torch.Tensor, assets,
 
     Args:
       verts: (B, V, 3); cam_wp: (B, 3) [s, tx, ty].
-      image: None (white background) or (B, img_wh, img_wh[, 3]) images to
-        composite over: the body replaces the pixels it covers, like the
-        reference's `rend_img * valid_mask + (1 - valid_mask) * img`.
+      image: None (white background), or images to composite over: a
+        (B, H, W[, 3]) tensor or a sequence of B (H_i, W_i[, 3]) arrays of
+        any sizes, each resized to the render's size (`_vis_base`).  The
+        body replaces the pixels it covers, like the reference's
+        `rend_img * valid_mask + (1 - valid_mask) * img`.
       rotate_x180: rotate the bodies 180 degrees about x first (the
         reference's reposed T-pose view).
       style: "lit" (the reference pyrender scene, `lit_face_colors`) or
@@ -168,15 +189,7 @@ def render_body_vis_batch(verts: torch.Tensor, cam_wp: torch.Tensor, assets,
     if image is None:
         base = torch.ones((), device=dev)
     else:
-        base = image.to(device=dev, dtype=torch.float32)
-        if base.shape[1:3] != (img_wh, img_wh):
-            raise ValueError(f"image must be (B, {img_wh}, {img_wh}[, 3]), got "
-                             f"{tuple(base.shape)}: compositing over an image of "
-                             f"another size is not ported")
-        scale = torch.where(base.flatten(1).amax(dim=1) > 1.5, 255.0, 1.0)
-        base = base / scale.view(-1, *([1] * (base.ndim - 1)))
-        if base.ndim == 3:
-            base = base[..., None].expand(-1, -1, -1, 3)
+        base = torch.stack([_vis_base(im, img_wh, dev) for im in image])
     out = torch.where(fg[..., None], color, base)
     return (out.clamp(0.0, 1.0) * 255).to(torch.uint8)
 
@@ -209,3 +222,57 @@ def proxy_vis_batch(proxies: torch.Tensor) -> torch.Tensor:
 def proxy_vis(proxy: torch.Tensor, out_path: str) -> None:
     """Write one (H, W, C) proxy's `proxy_vis_batch` image as a PNG."""
     write_png(out_path, proxy_vis_batch(proxy[None])[0].cpu().numpy())
+
+
+def silhouette_overlay_vis(images: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """`cv2.addWeighted(image, 1, mask * 255, 0.5, 0)` with the mask as
+    three channels (`predict_silhouette_pointrend.py:53-57`): uint8
+    (..., H, W, 3) images and (..., H, W) masks (> 0.5 is in) -> uint8,
+    rounded half to even and saturated as cv2 does."""
+    m = (masks > 0.5).to(torch.float32)[..., None] * 255.0
+    return torch.round(images.to(torch.float32) * 1.0 + m * 0.5 + 0.0).clamp(0, 255).to(
+        torch.uint8)
+
+
+def _circle_half_widths(radius: int) -> np.ndarray:
+    """cv2's filled circle (`cv::circle`, thickness -1, LINE_8, no shift)
+    as the half width of its horizontal span in each of its 2r+1 rows: its
+    midpoint loop fills spans centred on the centre, so a row is covered
+    where |dx| <= the largest half width drawn on it."""
+    r = radius
+    half = np.full(2 * r + 1, -1, np.int64)
+    err, dx, dy, plus, minus = 0, r, 0, 1, (r << 1) - 1
+    while dx >= dy:
+        for row, h in ((-dy, dx), (dy, dx), (-dx, dy), (dx, dy)):
+            half[row + r] = max(half[row + r], h)
+        dy += 1
+        err += plus
+        plus += 2
+        mask = (err <= 0) - 1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+    return half
+
+
+KEYPOINT_RADIUS = 5
+KEYPOINT_COLOR = (0, 255, 0)
+
+
+def keypoints_vis(images: torch.Tensor, keypoints: torch.Tensor) -> torch.Tensor:
+    """Green filled circles of radius 5 at the keypoints (centres rounded
+    half to even, as `int(round(x))`), clipped to the image: cv2.circle of
+    `predict_joints2D.py:53-59`.  uint8 (B, H, W, 3) images, (B, J, >= 2)
+    keypoints -> uint8 (B, H, W, 3).  The joint-index text is not drawn."""
+    B, H, W, _ = images.shape
+    dev = images.device
+    r = KEYPOINT_RADIUS
+    half = torch.as_tensor(_circle_half_widths(r), device=dev)
+    c = torch.round(keypoints[..., :2].to(torch.float32)).to(torch.int64)     # (B, J, 2)
+    dy = torch.arange(H, device=dev)[None, None, :] - c[..., 1:2]              # (B, J, H)
+    dx = torch.arange(W, device=dev)[None, None, :] - c[..., 0:1]              # (B, J, W)
+    row_half = torch.where(dy.abs() <= r, half[dy.clamp(-r, r) + r], -1)       # (B, J, H)
+    hit = dx.abs()[..., None, :] <= row_half[..., :, None]                     # (B, J, H, W)
+    covered = hit.any(dim=1)                                                    # (B, H, W)
+    color = torch.tensor(KEYPOINT_COLOR, dtype=torch.uint8, device=dev)
+    return torch.where(covered[..., None], color, images)

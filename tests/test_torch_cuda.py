@@ -1,4 +1,5 @@
-"""The rasterisers' CUDA kernels against their plain versions, on the card.
+"""The rasterisers' CUDA kernels against their plain versions, and the
+detector front end's NMS and ROIAlign against the CPU, on the card.
 
 Skipped where CUDA is absent.  On an H100:
 `python -m pytest tests/test_torch_cuda.py -m cuda`.  Both sides round
@@ -167,3 +168,37 @@ def test_predict_3d_renders_in_two_launches(cuda, tmp_path):
     assert CR.faceid_raster_kernel.launches == before + 2
     assert np.isfinite(out["verts"]).all()
     assert len(list((tmp_path / "out" / "rend_vis").iterdir())) == 6
+
+
+def test_nms_on_card_matches_cpu(cuda):
+    """The batched blocked NMS selects the same candidates on the card as on
+    the CPU (an RPN-sized problem: 4 images, 4,500 candidates each)."""
+    from straps_tpu_torch.perception.ops import nms_fixed
+
+    g = torch.Generator().manual_seed(0)
+    xy = torch.rand(4, 4500, 2, generator=g) * 700
+    boxes = torch.cat([xy, xy + 20 + torch.rand(4, 4500, 2, generator=g) * 200], -1)
+    scores = torch.rand(4, 4500, generator=g)
+    scores[:, ::7] = -torch.inf
+    want, want_v = nms_fixed(boxes, scores, 0.7, 512)
+    got, got_v = nms_fixed(boxes.to(cuda), scores.to(cuda), 0.7, 512)
+    assert torch.equal(got.cpu(), want) and torch.equal(got_v.cpu(), want_v)
+    assert want_v.sum() > 400
+
+
+@pytest.mark.parametrize("sampling_ratio,aligned", [(0, True), (2, True), (2, False)])
+def test_roi_align_on_card_matches_cpu(cuda, sampling_ratio, aligned):
+    from straps_tpu_torch.perception.ops import multilevel_roi_align, roi_align
+
+    g = torch.Generator().manual_seed(1)
+    feats = [torch.randn(2, 200 // 2 ** i, 200 // 2 ** i, 16, generator=g) for i in range(4)]
+    xy = torch.rand(2, 64, 2, generator=g) * 600
+    boxes = torch.cat([xy, xy + 4 + torch.rand(2, 64, 2, generator=g) * 300], -1).clamp(0, 800)
+    want = multilevel_roi_align(feats, boxes, (4, 8, 16, 32), 7, sampling_ratio=sampling_ratio,
+                                aligned=aligned)
+    got = multilevel_roi_align([f.to(cuda) for f in feats], boxes.to(cuda), (4, 8, 16, 32), 7,
+                               sampling_ratio=sampling_ratio, aligned=aligned)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    want = roi_align(feats[0], boxes, 0.25, 14, 1, mode="zeros")
+    got = roi_align(feats[0].to(cuda), boxes.to(cuda), 0.25, 14, 1, mode="zeros")
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

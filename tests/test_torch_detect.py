@@ -1,0 +1,291 @@
+"""The image slice of the PyTorch port: PNG decoding, the three resizes,
+the detector overlays, and `predict_3d` from PNG images through
+Keypoint-RCNN + PointRend, against cv2, Pillow and the JAX package.
+
+The decoder and the uint8 resizes are held bit for bit (cv2.imread,
+cv2.resize INTER_LINEAR with its exact-2x INTER_AREA route, Pillow's
+bilinear); the float cv2 resize to one level after the uint8 conversion.
+The whole slice runs both packages on the same PNGs, detectron2 pickles
+and regressor checkpoint at a 64² frame and a 96² detector size (the JAX
+package's sizes patched in this test only), 64 proposals and 4
+detections: the cached silhouettes equal on 99% of pixels, joints within
+0.1 px where the keypoint argmax agrees, npy outputs within 1e-3 of each
+array's largest value, renders with fewer than 0.2% of pixels moved by more
+than one level.
+"""
+
+import glob
+import os
+
+import cv2
+import jax
+import jax.numpy as jnp
+import matplotlib.image as mpimg
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import straps_tpu.perception as JPERC
+from straps_tpu.config import PredictConfig as JaxPredictConfig
+from straps_tpu.models import build_regressor
+from straps_tpu.predict import pipeline as JP
+from straps_tpu.render import vis as JV
+from straps_tpu.smpl import load_synthetic_assets
+from straps_tpu_torch.cli import run_predict
+from straps_tpu_torch.config import PredictConfig
+from straps_tpu_torch.models.convert import flax_to_torch_state_dict, state_dict_to_tensors
+from straps_tpu_torch.perception import frontend as TF
+from straps_tpu_torch.perception import rcnn as TR
+from straps_tpu_torch.perception.convert_d2 import save_d2_pkl
+from straps_tpu_torch.predict import pipeline as TP
+from straps_tpu_torch.render import vis as TV
+from straps_tpu_torch.utils.image import cv2_resize_linear_f32, cv2_resize_linear_u8
+from straps_tpu_torch.utils.png import decode_png, write_png
+from test_torch_perception import assert_nms_margins, person_biased, record_nms
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
+FRAME, TEST_SIZE, IMG = 64, 96, 64
+# The images' and detectors' seed: at seed 0 an RPN IoU that decides a
+# proposal lies within 1e-4 of 0.7 (`assert_nms_margins`).
+SEED = 1
+NPY_KEYS = ("verts", "shape", "pose_rotmats", "cam_wp")
+
+
+# --------------------------------------------------------- image input --
+
+@pytest.mark.parametrize("writer,channels", [("cv2", 1), ("cv2", 3), ("cv2", 4), ("pillow", 1),
+                                             ("pillow", 2), ("pillow", 3), ("pillow", 4)])
+def test_decode_png_matches_cv2_imread(tmp_path, channels, writer):
+    rng = np.random.RandomState(channels)
+    img = rng.randint(0, 256, (23, 37, channels)).astype(np.uint8)
+    img[4:15, 6:30] = 200                       # flat regions: every filter is chosen
+    img[:, ::3] //= 2
+    path = str(tmp_path / "x.png")
+    if writer == "cv2":
+        order = {1: [0], 3: [2, 1, 0], 4: [2, 1, 0, 3]}[channels]
+        cv2.imwrite(path, img[..., order])
+    else:
+        mode = {1: "L", 2: "LA", 3: "RGB", 4: "RGBA"}[channels]
+        Image.fromarray(img[..., 0] if channels == 1 else img, mode).save(path, optimize=True)
+    want = cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1]
+    np.testing.assert_array_equal(decode_png(path), want)
+
+
+@pytest.mark.parametrize("hw", [(640, 640), (1024, 1024), (400, 400), (512, 384)])
+def test_cv2_resize_linear_u8_is_bit_exact(hw):
+    """640² and 400² (a 300x400 image padded) take the linear path, 1024²
+    the exact-2x INTER_AREA route."""
+    rng = np.random.RandomState(hw[0])
+    img = rng.randint(0, 256, hw + (3,)).astype(np.uint8)
+    img[100:300, 50:250] = rng.randint(0, 256, 3)
+    want = cv2.resize(img, (512, 512), interpolation=cv2.INTER_LINEAR)
+    np.testing.assert_array_equal(cv2_resize_linear_u8(torch.as_tensor(img), 512, 512).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("hw,out", [((37, 53), (64, 64)), ((90, 70), (64, 64)),
+                                    ((128, 128), (64, 64))])
+def test_cv2_resize_linear_f32_matches_cv2(hw, out):
+    img = np.random.RandomState(0).rand(*hw, 3).astype(np.float32)
+    want = cv2.resize(img, out, interpolation=cv2.INTER_LINEAR)
+    got = cv2_resize_linear_f32(torch.as_tensor(img), *out).numpy()
+    np.testing.assert_allclose(got, want, atol=3e-7)
+    assert (np.floor(got * 255) != np.floor(want * 255)).mean() < 1e-3
+
+
+@pytest.mark.parametrize("hw,out", [((512, 512), 800), ((64, 64), 96), ((900, 700), 800)])
+def test_pil_bilinear_resize_is_bit_exact(hw, out):
+    img = np.random.RandomState(1).randint(0, 256, hw + (3,)).astype(np.uint8)
+    want = np.asarray(Image.fromarray(img).resize((out, out), Image.BILINEAR))
+    got = TF.pil_bilinear_resize_u8(torch.as_tensor(img)[None], out, out)[0].numpy()
+    np.testing.assert_array_equal(got, want)
+    f = img.astype(np.float32)
+    np.testing.assert_allclose(TF.bilinear_resize_f32(torch.as_tensor(f), out, out).numpy(),
+                               JPERC.frontend.bilinear_resize_f32(f, out, out), atol=1e-3)
+
+
+# ------------------------------------------------------------ overlays --
+
+def test_overlays_match_jax_vis():
+    rng = np.random.RandomState(3)
+    img = rng.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    sil = (rng.rand(2, 64, 64) > 0.6).astype(np.float32)
+    kp = np.concatenate([rng.uniform(-6, 70, (2, 17, 2)), rng.rand(2, 17, 1)],
+                        -1).astype(np.float32)
+    kp[0, 0, :2] = (10.5, 12.5)                      # halves round to even
+    got_s = TV.silhouette_overlay_vis(torch.as_tensor(img), torch.as_tensor(sil)).numpy()
+    got_k = TV.keypoints_vis(torch.as_tensor(img), torch.as_tensor(kp)).numpy()
+    for i in range(2):
+        np.testing.assert_array_equal(got_s[i], JV.silhouette_overlay_vis(img[i], sil[i]))
+        # The JAX vis also writes each joint's index in red (cv2.putText,
+        # not ported): the circles alone are cv2.circle's.
+        want = img[i].copy()
+        for x, y in kp[i, :, :2]:
+            cv2.circle(want, (int(round(float(x))), int(round(float(y)))), 5, (0, 255, 0), -1)
+        np.testing.assert_array_equal(got_k[i], want)
+        text = (JV.keypoints_vis(img[i], kp[i]) != want).any(-1)
+        assert ((got_k[i] == JV.keypoints_vis(img[i], kp[i])).all(-1) | text).all()
+
+
+def test_selection_and_crop_match_jax():
+    rng = np.random.RandomState(4)
+    for _ in range(5):
+        masks = np.zeros((4, 60, 60), bool)
+        for m in masks:
+            r, c = rng.randint(0, 40, 2)
+            m[r:r + rng.randint(3, 20), c:c + rng.randint(3, 20)] = True
+        valid = rng.rand(4) > 0.3
+        boxes = np.sort(rng.uniform(0, 60, (4, 2, 2)), axis=1).reshape(4, 4)[:, [0, 2, 1, 3]]
+        assert (TF.get_largest_centred_mask_index(masks, valid, 60, 60)
+                == JPERC.get_largest_centred_mask_index(masks, valid, 60, 60))
+        assert (TF.get_largest_centred_box_index(boxes, valid, 60, 60)
+                == JPERC.get_largest_centred_box_index(boxes, valid, 60, 60))
+        img = rng.randint(0, 256, (60, 60, 3)).astype(np.uint8)
+        np.testing.assert_array_equal(TP.crop_image_like_proxy(masks[0], img),
+                                      JP.crop_image_like_proxy(masks[0], img))
+    empty = np.zeros((60, 60), np.float32)
+    np.testing.assert_array_equal(TP.crop_image_like_proxy(empty, img),
+                                  JP.crop_image_like_proxy(empty, img))
+
+
+# -------------------------------------------------------- whole slice --
+
+@pytest.fixture(scope="module")
+def slice_inputs(tmp_path_factory):
+    """Three PNGs of other sizes than the frame (one needs odd padding),
+    the two detectors' pickles from the port's seeded init (people and
+    masks made likely), and a regressor checkpoint whose IEF head returns
+    bodies near the T-pose."""
+    d = tmp_path_factory.mktemp("slice")
+    rng = np.random.RandomState(SEED)
+    for i, (h, w) in enumerate(((48, 64), (80, 80), (71, 50))):
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        img[h // 4:3 * h // 4, w // 3:2 * w // 3] = (200, 150, 100)
+        write_png(str(d / "images" / f"im{i}.png"), img)
+    pkls = []
+    for cls, seed, name in ((TR.KeypointRCNN, 2 * SEED, "kp.pkl"),
+                            (TR.PointRendRCNN, 2 * SEED + 1, "pr.pkl")):
+        model = TR.init_random_weights(cls(), torch.Generator().manual_seed(seed))
+        save_d2_pkl(str(d / name), person_biased(model.state_dict()))
+        pkls.append(str(d / name))
+    assets = load_synthetic_assets()
+    regressor = build_regressor(assets.mean_pose_6d, assets.mean_shape)
+    variables = regressor.init(jax.random.PRNGKey(0), jnp.zeros((1, IMG, IMG, 18)), train=False)
+    sd = flax_to_torch_state_dict(jax.tree_util.tree_map(np.asarray, variables))
+    bias = np.zeros(157, np.float32)
+    bias[3:147] = (np.tile(np.array([1, 0, 0, 1, 0, 0], np.float32), 24)
+                   - np.asarray(assets.mean_pose_6d, np.float32)) / 3
+    sd["ief_module.fc3.weight"] = sd["ief_module.fc3.weight"] * np.float32(0.1)
+    sd["ief_module.fc3.bias"] = bias
+    ckpt = str(d / "straps_model_checkpoint.tar")
+    torch.save({"best_model_state_dict": state_dict_to_tensors(sd)}, ckpt)
+    return str(d / "images"), pkls, ckpt
+
+
+def _cfg(cls, images, pkls, ckpt, out_dir):
+    cfg = cls(input_dir=images, checkpoint=ckpt, out_dir=out_dir, silhouettes_from="pointrend",
+              keypoint_checkpoint=pkls[0], silhouette_checkpoint=pkls[1], img_wh=IMG,
+              detector_post_nms_topk=64, detector_max_detections=4)
+    cfg.model.compute_dtype = None
+    if cls is PredictConfig:
+        cfg.detector_image_size, cfg.detector_test_size = FRAME, TEST_SIZE
+    return cfg
+
+
+def _files(root):
+    return sorted(os.path.relpath(os.path.join(dp, f), root)
+                  for dp, _, fs in os.walk(root) for f in fs)
+
+
+def test_predict_3d_from_images_vs_jax(slice_inputs, tmp_path, monkeypatch):
+    images, pkls, ckpt = slice_inputs
+    calls = record_nms(monkeypatch)
+    got = TP.predict_3d(_cfg(PredictConfig, images, pkls, ckpt, str(tmp_path / "torch")),
+                        device="cpu")
+    # No decision of this seed that shapes a detection lies within 1e-4 of
+    # its threshold: the NMS IoUs, and the box-NMS candidates' scores.
+    assert_nms_margins(calls)
+    for boxes, scores, thr, n, idx, valid in calls:
+        if thr == 0.5:
+            assert ((scores[torch.isfinite(scores)] - 0.05) > 1e-4).all()
+
+    monkeypatch.setattr(JPERC, "DEFAULT_IMAGE_SIZE", FRAME)
+    monkeypatch.setattr(JPERC, "DETECTOR_TEST_SIZE", TEST_SIZE)
+    want = JP.predict_3d(_cfg(JaxPredictConfig, images, pkls, ckpt, str(tmp_path / "jax")))
+    assert got["names"] == want["names"] == ["im0", "im1", "im2"]
+
+    sil_agree, joints_close = [], []
+    for name in got["names"]:
+        sil = [np.load(tmp_path / side / "proxies" / f"{name}_silhouette.npy")
+               for side in ("torch", "jax")]
+        joints = [np.load(tmp_path / side / "proxies" / f"{name}_joints2D.npy")
+                  for side in ("torch", "jax")]
+        assert sil[0].shape == (FRAME, FRAME) and joints[0].shape == (17, 2)
+        sil_agree.append((sil[0] == sil[1]).mean())
+        joints_close.append((np.abs(joints[0] - joints[1]).max(-1) < 0.1).mean())
+    assert min(sil_agree) > 0.99 and np.mean([s.mean() for s in sil]) > 0.02
+    assert min(joints_close) > 0.8
+    for k in NPY_KEYS:
+        scale = np.abs(want[k]).max()
+        assert np.abs(got[k] - want[k]).max() <= 1e-3 * scale, k
+    jax_files = [f for f in _files(tmp_path / "jax") if not f.startswith("verts_vis")]
+    assert _files(tmp_path / "torch") == jax_files
+    for name in got["names"]:
+        for kind in ("rend", "reposed"):
+            img = mpimg.imread(str(tmp_path / "torch" / "rend_vis" / f"{kind}_{name}.png"))
+            ref = mpimg.imread(str(tmp_path / "jax" / "rend_vis" / f"{kind}_{name}.png"))
+            moved = (np.abs(img - ref[..., :3]) > 1.5 / 255).any(axis=-1).mean()
+            assert moved < 0.002, (kind, name, moved)
+        img = mpimg.imread(str(tmp_path / "torch" / "proxy_vis" / f"silhouette_{name}.png"))
+        ref = mpimg.imread(str(tmp_path / "jax" / "proxy_vis" / f"silhouette_{name}.png"))
+        assert (np.abs(img - ref[..., :3]) > 1.5 / 255).any(axis=-1).mean() < 0.01
+    # The cached proxies the run wrote reproduce its predictions.
+    cached_cfg = PredictConfig(input_dir=str(tmp_path / "torch" / "proxies"), checkpoint=ckpt,
+                               img_wh=IMG, out_dir=str(tmp_path / "cached"))
+    cached_cfg.model.compute_dtype = None
+    cached = TP.predict_3d(cached_cfg, device="cpu")
+    for k in NPY_KEYS:
+        np.testing.assert_array_equal(cached[k], got[k])
+
+
+def test_cli_runs_the_image_path(slice_inputs, tmp_path, capsys):
+    images, pkls, ckpt = slice_inputs
+    out = str(tmp_path / "out")
+    got = run_predict.main(["--input", images, "--silh-from", "pointrend", "--checkpoint", ckpt,
+                            "--keypoint-checkpoint", pkls[0], "--silhouette-checkpoint", pkls[1],
+                            "--out-dir", out, "--device", "cpu", f"img_wh={IMG}",
+                            "detector_post_nms_topk=32", "detector_max_detections=2",
+                            f"detector_image_size={FRAME}", f"detector_test_size={TEST_SIZE}",
+                            "detector_backbone_dtype=bfloat16", "--no-vis"])
+    assert "predicted 3 images" in capsys.readouterr().out
+    assert all(np.isfinite(got[k]).all() for k in NPY_KEYS)
+    assert sorted(os.listdir(os.path.join(out, "proxies"))) == sorted(
+        f"im{i}_{k}.npy" for i in range(3) for k in ("silhouette", "joints2D"))
+
+
+def test_random_detectors_need_opting_in(slice_inputs, tmp_path):
+    images, _, _ = slice_inputs
+    cfg = PredictConfig(input_dir=images, out_dir=str(tmp_path), silhouettes_from="pointrend",
+                        img_wh=IMG)
+    with pytest.raises(ValueError, match=r"detector checkpoint\(s\) not configured"):
+        TP.detect_and_build_proxies(cfg, device="cpu", size=FRAME, test_size=TEST_SIZE)
+    cfg.allow_random_detectors = True
+    cfg.detector_post_nms_topk, cfg.detector_max_detections = 16, 2
+    with pytest.warns(UserWarning, match="RANDOM-WEIGHT DETECTORS"):
+        names, proxies, vis = TP.detect_and_build_proxies(cfg, device="cpu", size=FRAME,
+                                                          test_size=TEST_SIZE)
+    assert names == ["im0", "im1", "im2"] and proxies.shape == (3, IMG, IMG, 18)
+    assert vis["joints_vis"].shape == (3, FRAME, FRAME, 3) and len(vis["crops"]) == 3
+
+
+def test_jpg_inputs_are_refused(slice_inputs, tmp_path):
+    images, pkls, ckpt = slice_inputs
+    d = tmp_path / "mixed"
+    d.mkdir()
+    for f in glob.glob(os.path.join(images, "*.png")):
+        os.symlink(f, d / os.path.basename(f))
+    cv2.imwrite(str(d / "photo.jpg"), np.zeros((8, 8, 3), np.uint8))
+    cfg = _cfg(PredictConfig, str(d), pkls, ckpt, str(tmp_path / "out"))
+    with pytest.raises(ValueError, match="photo.jpg"):
+        TP.predict_3d(cfg, device="cpu")

@@ -1,6 +1,7 @@
-"""Import guard of the PyTorch port: no file of `straps_tpu_torch/`, nor
-`chip_smoke.py`, imports JAX, flax, orbax, cv2, matplotlib, PIL or the JAX
-package (the machine with the card has none of them)."""
+"""Import guard of the PyTorch port: no file of `straps_tpu_torch/` (the
+detector front end in `perception/` and the image IO in `utils/` included),
+nor `chip_smoke.py`, imports JAX, flax, orbax, cv2, matplotlib, PIL or the
+JAX package (the machine with the card has none of them)."""
 
 import ast
 import pathlib
@@ -25,8 +26,15 @@ def _imported_modules(path):
             yield node.args[0].value
 
 
+PERCEPTION = ("__init__", "anchors", "convert_d2", "fpn", "frontend", "heads", "ops",
+              "pointrend", "rcnn", "rpn")
+
+
 def test_port_files_exist():
     assert len(FILES) > 20 and all(f.exists() for f in FILES)
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for module in [f"perception/{m}" for m in PERCEPTION] + ["utils/image", "utils/png"]:
+        assert f"straps_tpu_torch/{module}.py" in names, module
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -48,7 +56,7 @@ def _module_level_imports(node):
         yield from _module_level_imports(child)
 
 
-LOWER_LAYERS = ("models", "smpl", "render", "geometry")
+LOWER_LAYERS = ("models", "smpl", "render", "geometry", "perception", "utils")
 
 
 @pytest.mark.parametrize("layer", LOWER_LAYERS)

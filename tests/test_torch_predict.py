@@ -160,19 +160,23 @@ def test_cli_on_cpu(checkpoint, inputs, tmp_path, capsys):
         f"{n}_{k}.npy" for n in inputs[1] for k in NPY_KEYS)
 
 
-@pytest.mark.parametrize("argv", [["--silh-from", "pointrend"],
-                                  ["--silh-from", "densepose"],
+@pytest.mark.parametrize("argv", [["--silh-from", "densepose"],
+                                  ["--silh-from", "densepose", "--allow-random-detectors"],
                                   ["--keypoint-checkpoint", "kp.pkl"],
                                   ["--allow-random-detectors"]])
 def test_cli_refuses_detector_path(tmp_path, capsys, argv):
+    """The DensePose route is not ported; the detector flags serve only
+    `--silh-from pointrend` and are refused with cached proxies."""
     with pytest.raises(SystemExit):
         run_predict.main(["--input", str(tmp_path), "--device", "cpu"] + argv)
-    assert "detector front end is not ported" in capsys.readouterr().err
+    want = ("is the next slice of the PyTorch port" if "densepose" in argv
+            else "serve only the detector front end")
+    assert want in capsys.readouterr().err
 
 
 def test_predict_3d_refuses_detector_path(tmp_path):
     cfg = PredictConfig(input_dir=str(tmp_path), silhouettes_from="densepose")
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+    with pytest.raises(NotImplementedError, match="DensePose front end .* next slice"):
         TP.predict_3d(cfg, device="cpu")
 
 
@@ -188,6 +192,10 @@ def test_cuda_entry_points_without_card_raise(inputs, tmp_path, monkeypatch):
         lambda: TP.load_cached_proxies(inputs[0], IMG),
         lambda: TP.predict_3d(PredictConfig(input_dir=inputs[0], out_dir=str(tmp_path))),
         lambda: run_predict.main(["--input", inputs[0], "--out-dir", str(tmp_path)]),
+        lambda: TP.build_detector_models(PredictConfig(silhouettes_from="pointrend"), 64),
+        lambda: TP.detect_and_build_proxies(
+            PredictConfig(input_dir=inputs[0], silhouettes_from="pointrend",
+                          allow_random_detectors=True, out_dir=str(tmp_path))),
         lambda: train(TrainConfig(img_wh=IMG, batch_size=2,
                                   model_save_path=str(tmp_path / "ckpt" / "m"),
                                   log_path=str(tmp_path / "logs" / "l.pkl")),
