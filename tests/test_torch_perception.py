@@ -513,3 +513,16 @@ def test_flax_weights_round_trip_through_d2_pickle(tmp_path, kind):
         model = TR.KeypointRCNN() if kind == "keypoint" else TR.PointRendRCNN()
     with pytest.raises(KeyError, match="fpn_output3.bias"):
         load_detector_state(model, load_d2_pkl(path))
+
+
+def test_normalisation_matches_jax():
+    """detectron2's input: RGB uint8 -> BGR minus the pixel mean, on the
+    host (HWC) and on the device (NCHW, from a uint8 batch)."""
+    from straps_tpu.perception.rcnn import normalise_image as j_normalise
+
+    img = np.random.RandomState(6).randint(0, 256, (2, 9, 7, 3)).astype(np.uint8)
+    want = np.stack([j_normalise(i) for i in img])
+    np.testing.assert_array_equal(TR.normalise_image(img[0]), want[0])
+    got = TR.normalise_image_device(torch.as_tensor(img))
+    assert got.shape == (2, 3, 9, 7) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), want)
