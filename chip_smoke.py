@@ -57,7 +57,25 @@ Phases, each of which raises on failure:
        2 of the images at 256x256, float32 (the CPU run's NMS decisions
        clear of their thresholds; FPN features and RPN outputs within 1e-4
        of each tensor's largest value, boxes 0.1 px, keypoints 0.1 px,
-       masks 99% of pixels);
+       masks 99% of pixels), and the Keypoint-RCNN trunk's stages between
+       the RPN outputs and the boxes (proposals, pooled box features,
+       cls_score and bbox_pred, decoded boxes) on each device's own chain
+       and with the card fed the CPU's inputs of each stage;
+     - the predict CLI from the same 16 PNGs with `--silh-from densepose`:
+       Keypoint-RCNN R50-FPN and DensePose-RCNN R101-FPN at full width
+       (800x800, 512 proposals, 8 detections, the DensePose head at 14x14
+       x 512 and S/I/U/V at 56x56; the DensePose pickle's coarse
+       segmentation foreground raised too): detections on every image,
+       exactly 2 face-id launches held bit for bit, the cached rerun
+       identical, the DensePose overlays written; DensePose on the card and
+       on the CPU on 2 images at 256x256, float32 (features, RPN outputs
+       and S/I/U/V logits as shares of each tensor's largest value, boxes
+       in px, part maps on the detections whose integer paste geometry
+       agrees, the others counted);
+     - the evaluation CLI on an SSP-3D release layout (`labels.npz` and
+       silhouette PNGs of 64 synthetic bodies at 512x512) at 256x256,
+       batch 32, with `--iou-frame image` (one packed launch per batch,
+       IoU above 0.2) and `--iou-frame crop`;
   5. times: each kernel at B=64, 256x256 (packed: culled eval bodies;
      face-id: unculled, the predict renders' own bodies), beside its bound
      and its plain version; the evaluation's and the predict's wall time;
@@ -69,10 +87,14 @@ Phases, each of which raises on failure:
      kernel's B=64 eval-body numbers under `ms`, `plain_ms` and `bound_ms`,
      its first-train-batch numbers under `train_*`, and its launches on
      the evaluation and training paths; `inputs` names the bodies; the
-     face-id entry's `image_path_launches` are the image predict's.  The
-     image slice: each detector's forward on a chunk of 8 at 800x800 in
-     float32 and with the bfloat16 backbone, its peak memory and NMS's
-     share, and the warm image predict under the profiler.
+     face-id entry's `image_path_launches` and `densepose_path_launches`
+     are the two image predicts', the packed entry's
+     `release_eval_launches` the release-layout eval's.  The image slice:
+     each detector's forward on a chunk of 8 at 800x800 in float32 and
+     with the bfloat16 backbone, its peak memory and NMS's share (for
+     DensePose its stages: backbone + FPN, RPN + box head, DensePose
+     pooler + head + predictor, the paste), the warm image predicts under
+     the profiler, and the warm release-layout eval under the profiler.
 The whole run's wall time, then the card's name and power limit come
 before the `kernels` JSON, which is on the line before the last; the result
 JSON is last.
@@ -529,27 +551,38 @@ def write_detector_pngs(assets, in_dir, seed=0):
 def person_biased(state, cls_bias=6.0, mask_bias=1.5):
     """Seeded random detectors that find people: the person class logit
     raised (the 80-class PointRend then scores a person ~0.8, not ~0.01),
-    and the person masks' coarse and point predictions raised."""
+    the person masks' coarse and point predictions raised, and DensePose's
+    coarse segmentation foreground channels raised (so that every selected
+    silhouette is mostly foreground)."""
     out = dict(state)
-    for key, n in (("roi_heads.box_predictor.cls_score.bias", (1, cls_bias)),
-                   ("roi_heads.mask_coarse_head.prediction.bias", (49, mask_bias)),
-                   ("roi_heads.mask_point_head.predictor.bias", (1, mask_bias))):
+    for key, rows, bias in (("roi_heads.box_predictor.cls_score.bias", slice(0, 1), cls_bias),
+                            ("roi_heads.mask_coarse_head.prediction.bias", slice(0, 49), mask_bias),
+                            ("roi_heads.mask_point_head.predictor.bias", slice(0, 1), mask_bias),
+                            ("roi_heads.densepose_predictor.ann_index_lowres.bias", slice(1, None),
+                             mask_bias)):
         if key in out:
             b = out[key].clone()
-            b[:n[0]] += n[1]
+            b[rows] += bias
             out[key] = b
     return out
 
 
+DETECTORS = {"keypoint": "KeypointRCNN", "pointrend": "PointRendRCNN",
+             "densepose": "DensePoseRCNN"}
+
+
 def write_detector_pkls(d, seed=DET_SEED):
-    """detectron2 pickles of the two detectors from the port's seeded init
-    (`person_biased`): (keypoint pkl, PointRend pkl)."""
+    """detectron2 pickles of the three detectors from the port's seeded
+    init (`person_biased`): (keypoint pkl, PointRend pkl, DensePose pkl).
+    DensePose takes seed 2 * seed + 3: at 2 * seed + 2 its RPN meets an NMS
+    threshold within 1e-4 on the card-vs-CPU images."""
     from straps_tpu_torch.perception import rcnn
     from straps_tpu_torch.perception.convert_d2 import save_d2_pkl
 
     paths = []
     for cls, s, name in ((rcnn.KeypointRCNN, 2 * seed, "kp.pkl"),
-                         (rcnn.PointRendRCNN, 2 * seed + 1, "pr.pkl")):
+                         (rcnn.PointRendRCNN, 2 * seed + 1, "pr.pkl"),
+                         (rcnn.DensePoseRCNN, 2 * seed + 3, "dp.pkl")):
         with torch.device("meta"):
             model = cls()
         rcnn.init_random_weights(model, torch.Generator().manual_seed(s))
@@ -563,9 +596,21 @@ def load_detector(kind, pkl, device, **kw):
     from straps_tpu_torch.perception.convert_d2 import load_d2_pkl, load_detector_state
 
     with torch.device("meta"):
-        model = (rcnn.KeypointRCNN if kind == "keypoint" else rcnn.PointRendRCNN)(
-            output_size=DET_FRAME, **kw)
+        model = getattr(rcnn, DETECTORS[kind])(output_size=DET_FRAME, **kw)
     return load_detector_state(model, load_d2_pkl(pkl), device)
+
+
+def record_nms(ops):
+    """Record the inputs and outputs of every `nms_fixed` call from now on;
+    returns (calls, restore)."""
+    calls, real = [], ops.nms_fixed
+
+    def nms(boxes, scores, thr, n, **kw):
+        idx, valid = real(boxes, scores, thr, n, **kw)
+        calls.append((boxes, scores, thr, n, idx, valid))
+        return idx, valid
+    ops.nms_fixed = nms
+    return calls, lambda: setattr(ops, "nms_fixed", real)
 
 
 def nms_decisions_clear(calls, margin=1e-4):
@@ -611,20 +656,14 @@ def detector_card_vs_cpu(pkls, images, test_size=256):
             model = load_detector(kind, pkl, device)
             x = normalise_image_device(pil_bilinear_resize_u8(images.to(device), test_size,
                                                               test_size))
-            calls, real = [], ops.nms_fixed
-
-            def nms(boxes, scores, thr, n, **kw):
-                idx, valid = real(boxes, scores, thr, n, **kw)
-                calls.append((boxes, scores, thr, n, idx, valid))
-                return idx, valid
-            ops.nms_fixed = nms
+            calls, restore = record_nms(ops)
             try:
                 with torch.inference_mode():
                     feats = model.backbone(x)
                     rpn = model.proposal_generator.rpn_head(feats)
                     out = model(x)
             finally:
-                ops.nms_fixed = real
+                restore()
             res[device] = ([f.cpu() for f in feats], [t.cpu() for t in rpn[0] + rpn[1]],
                            {k: v.cpu() for k, v in out.items()}, calls)
         (fk, rk, ok, _), (fc, rc, oc, calls) = res["cuda"], res["cpu"]
@@ -706,6 +745,320 @@ def detector_times(card, pkls, images):
                   f"detections {trunk - bb:.2f} ms, the {kind} head {min(times) - trunk:.2f} ms")
             del model
 
+
+def trunk_stages(model, x, given=None):
+    """The detection trunk's stages as `_DetectorBase.trunk` computes them
+    (float32): RPN outputs, proposals after the per-level top-k and NMS,
+    pooled box features, `cls_score` and `bbox_pred`, decoded boxes.  With
+    `given` (another device's stages), each stage is computed from the
+    inputs in `given` instead of this device's own, so that its error is
+    the stage's alone."""
+    from straps_tpu_torch.perception.anchors import fpn_anchors
+    from straps_tpu_torch.perception.fpn import FPN_STRIDES
+    from straps_tpu_torch.perception.heads import box_inference, pooled_box_features
+    from straps_tpu_torch.perception.rpn import generate_proposals
+
+    dev = x.device
+    own = {}
+
+    def src(key):
+        return own[key] if given is None else [t.to(dev) for t in given[key]]
+    img = x.shape[-1]
+    own["feats"] = model.backbone(x)
+    own["logits"], own["deltas"] = model.proposal_generator.rpn_head(own["feats"])
+    logits, deltas = src("logits"), src("deltas")
+    anchors = fpn_anchors(img, FPN_STRIDES, feat_sizes=[f.shape[-2:] for f in logits])
+    own["proposals"] = list(generate_proposals(logits, deltas, anchors, img,
+                                               post_nms_topk=model.post_nms_topk))
+    feats = src("feats")
+    props, _, p_valid = src("proposals")
+    nhwc = [f.permute(0, 2, 3, 1).contiguous() for f in feats[:4]]
+    own["roi"] = [pooled_box_features(nhwc, props, 7, aligned=model.box_pooler_aligned,
+                                      sampling_ratio=model.box_pooler_sampling_ratio)]
+    own["head"] = list(model.roi_heads.box_predictor(model.roi_heads.box_head(src("roi")[0])))
+    cls, deltas = src("head")
+    B, P = props.shape[:2]
+    own["boxes"] = list(box_inference(cls.view(B, P, -1), deltas.view(B, P, -1), props, p_valid,
+                                      img, score_thresh=model.score_thresh,
+                                      max_detections=model.max_detections))
+    return {k: [t.cpu() for t in v] for k, v in own.items()}
+
+
+def box_drift_stages(pkl, images, test_size=256):
+    """Where the card-vs-CPU drift of the Keypoint-RCNN boxes comes from:
+    each trunk stage on the card and on the CPU, float32, first each
+    device on its own chain, then the card fed the CPU's inputs of the
+    stage.  Near-equal RPN scores may sort in another order on the card,
+    so each card proposal is compared with its nearest CPU proposal, and
+    the later per-proposal stages through that match.  Returns the report
+    line."""
+    from straps_tpu_torch.perception.frontend import pil_bilinear_resize_u8
+    from straps_tpu_torch.perception.rcnn import normalise_image_device
+
+    res = {}
+    with torch.inference_mode():
+        for device in ("cpu", "cuda"):
+            model = load_detector("keypoint", pkl, device)
+            x = normalise_image_device(pil_bilinear_resize_u8(images.to(device), test_size,
+                                                              test_size))
+            res[device] = trunk_stages(model, x)
+            if device == "cuda":
+                res["fed"] = trunk_stages(model, x, given=res["cpu"])
+    cpu = res["cpu"]
+    props_c, _, valid_c = cpu["proposals"]
+    B, P = valid_c.shape
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    parts = []
+    for side in ("cuda", "fed"):
+        st = res[side]
+        props, _, valid = st["proposals"]
+        dist = torch.where(valid_c[:, None],
+                           (props[:, :, None] - props_c[:, None]).abs().amax(-1), torch.inf)
+        same = dist.diagonal(dim1=1, dim2=2)                            # the same rank's
+        dist, match = dist.min(-1)
+        match = torch.where(same <= dist, torch.arange(P), match)       # duplicates keep rank
+        flat = (torch.arange(B)[:, None] * P + match)[valid]
+        moved = int((match != torch.arange(P))[valid].sum())
+        cls, deltas = st["head"]
+        boxes, _, b_valid = st["boxes"]
+        both = b_valid & cpu["boxes"][2]
+        d_box = float((boxes - cpu["boxes"][0])[both].abs().max()) if both.any() else 0.0
+        rpn = ("-" if side == "fed" else
+               f"logits {max(rel(a, b) for a, b in zip(st['logits'], cpu['logits'])):.3e}, "
+               f"deltas {max(float((a - b).abs().max()) for a, b in zip(st['deltas'], cpu['deltas'])):.3e} (abs)")
+        parts.append(
+            f"{'own chain' if side == 'cuda' else 'fed the CPU inputs'}: RPN {rpn}; proposals "
+            f"{float(dist[valid].max()):.3e} px from their nearest CPU proposal ({int(valid.sum())} "
+            f"valid, CPU {int(valid_c.sum())}; {moved} at another rank); pooled box features "
+            f"{rel(st['roi'][0][valid.flatten()], cpu['roi'][0][flat]):.3e} of the largest; "
+            f"cls_score {float((cls[valid.flatten()] - cpu['head'][0][flat]).abs().max()):.3e}, "
+            f"bbox_pred {float((deltas[valid.flatten()] - cpu['head'][1][flat]).abs().max()):.3e} "
+            f"(abs); boxes {d_box:.3e} px (detections equal {torch.equal(b_valid, cpu['boxes'][2])})")
+    largest = max(float(d.abs().max()) for d in cpu["deltas"])
+    return (f"box drift by stage, keypoint detector on {images.shape[0]} images at "
+            f"{test_size}x{test_size} f32 (network frame), card vs CPU; largest RPN box delta "
+            f"{largest:.3f} (anchor sizes 32-512 px). " + ". ".join(parts))
+
+
+def densepose_card_vs_cpu(pkl, images, test_size=256):
+    """DensePose-RCNN R101-FPN on the card and on the CPU, float32, on the
+    same images at `test_size`: P2-P6 and the RPN outputs, the S/I/U/V
+    logits as shares of each tensor's largest value, the boxes in px; the
+    frame part maps compared only on detections whose integer paste
+    geometry (origin and size, what `paste_part_labels` truncates) agrees
+    on both devices, the others counted.  The CPU run's NMS decisions must
+    clear their thresholds by 1e-4.  Returns the report line."""
+    from straps_tpu_torch.perception import ops
+    from straps_tpu_torch.perception.frontend import pil_bilinear_resize_u8
+    from straps_tpu_torch.perception.rcnn import normalise_image_device
+
+    res = {}
+    for device in ("cuda", "cpu"):
+        model = load_detector("densepose", pkl, device, output_part_maps=True)
+        x = normalise_image_device(pil_bilinear_resize_u8(images.to(device), test_size, test_size))
+        logits = []
+        hook = model.roi_heads.densepose_predictor.register_forward_hook(
+            lambda m, i, o: logits.extend(t.cpu() for t in o))
+        calls, restore = record_nms(ops)
+        try:
+            with torch.inference_mode():
+                feats = model.backbone(x)
+                rpn = model.proposal_generator.rpn_head(feats)
+                out = model(x)
+        finally:
+            restore()
+            hook.remove()
+        res[device] = ([f.cpu() for f in feats], [t.cpu() for t in rpn[0] + rpn[1]],
+                       {k: v.cpu() for k, v in out.items()}, logits, calls)
+    (fk, rk, ok, lk, _), (fc, rc, oc, lc, calls) = res["cuda"], res["cpu"]
+
+    def rel(a, b):
+        return max(float((s - t).abs().max() / t.abs().max()) for s, t in zip(a, b))
+    clear = nms_decisions_clear(calls)
+    valid = oc["valid"]
+    same_valid = torch.equal(ok["valid"], valid)
+    d_box = float((ok["boxes"] - oc["boxes"])[valid].abs().max()) if valid.any() else 0.0
+
+    def geometry(boxes):
+        return torch.stack([torch.trunc(boxes[..., 0]), torch.trunc(boxes[..., 1]),
+                            torch.trunc(boxes[..., 2] - boxes[..., 0]).clamp(min=1),
+                            torch.trunc(boxes[..., 3] - boxes[..., 1]).clamp(min=1)], -1)
+    same_geo = (geometry(ok["boxes"]) == geometry(oc["boxes"])).all(-1) & valid
+    agree = (float((ok["part_map"] == oc["part_map"])[same_geo].float().mean())
+             if same_geo.any() else 1.0)
+    d_logits = {name: rel([k], [c]) for name, k, c in zip("SIUV", lk, lc)}
+    line = (f"reference check, DensePose-RCNN R101-FPN on {images.shape[0]} images at "
+            f"{test_size}x{test_size} f32, card vs CPU: NMS decisions clear of their thresholds "
+            f"{clear}, FPN features {rel(fk, fc):.3e} and RPN outputs {rel(rk, rc):.3e} of each "
+            f"tensor's largest (bound 1e-4), valid detections equal {same_valid} "
+            f"({int(valid.sum())}), boxes {d_box:.3e} px (bound 0.1), logits of each tensor's "
+            f"largest " + ", ".join(f"{k} {v:.3e}" for k, v in d_logits.items())
+            + f" (bound 1e-2); part maps on the {int(same_geo.sum())} detections whose integer "
+            f"paste geometry agrees: pixels equal {agree:.5f} (bound 0.99); "
+            f"{int(valid.sum() - same_geo.sum())} detections with another integer geometry "
+            f"on the card, not compared")
+    if not (clear and rel(fk, fc) <= 1e-4 and rel(rk, rc) <= 1e-4 and same_valid
+            and d_box <= 0.1 and max(d_logits.values()) <= 1e-2 and agree > 0.99
+            and valid.any()):
+        raise AssertionError(line)
+    return line
+
+
+def densepose_times(card, pkl, images):
+    """DensePose-RCNN R101-FPN at the full configuration (800² test size,
+    512 proposals, 8 detections, 512 frame) on one chunk of 8 of `images`:
+    the CUDA-synchronised forward in float32 and with the bfloat16
+    backbone (median of 5 after a warm-up), its stages by differences of
+    minimums of 5 (backbone + FPN; RPN + proposals + box head + detections;
+    the DensePose pooler, head and predictor; the frame paste), peak
+    device memory."""
+    from straps_tpu_torch.perception.densepose import densepose_to_iuv, paste_part_labels
+    from straps_tpu_torch.perception.frontend import pil_bilinear_resize_u8
+    from straps_tpu_torch.perception.heads import pooled_box_features
+    from straps_tpu_torch.perception.rcnn import normalise_image_device
+
+    x = normalise_image_device(pil_bilinear_resize_u8(images[:8], DET_TEST, DET_TEST))
+    for dtype in (None, "bfloat16"):
+        model = load_detector("densepose", pkl, "cuda", backbone_dtype=dtype)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            times = synced_ms(lambda: model(x), warm=1, reps=5)
+            trunk = min(synced_ms(lambda: model.trunk(x), warm=0, reps=5))
+            with torch.autocast("cuda", dtype=torch.bfloat16, enabled=dtype is not None):
+                bb = min(synced_ms(lambda: model.backbone(x), warm=0, reps=5))
+            nhwc, boxes, _, valid = model.trunk(x)
+            heads = model.roi_heads
+
+            def head():
+                roi = pooled_box_features(nhwc, boxes, 14, aligned=False, sampling_ratio=2,
+                                          compute_dtype=model.compute_dtype)
+                s, i, u, v = heads.densepose_predictor(heads.densepose_head(roi))
+                densepose_to_iuv(s, i, u, v)
+                return s, i
+            head_ms = min(synced_ms(head, warm=0, reps=5))
+            s, i = head()
+            out_boxes = (boxes * (DET_FRAME / DET_TEST)).reshape(-1, 4)
+            paste_ms = min(synced_ms(lambda: paste_part_labels(s, i, out_boxes, DET_FRAME,
+                                                               DET_FRAME), warm=0, reps=5))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        med = float(np.median(times))
+        print(f"times on {card}: DensePose-RCNN R101-FPN forward, chunk of 8 at "
+              f"{DET_TEST}x{DET_TEST} ({int(valid.sum())} detections), backbone "
+              f"{dtype or 'float32'}: median {med:.2f} ms (min {min(times):.2f}, max "
+              f"{max(times):.2f}; {8e3 / med:.2f} images/s), peak device memory {peak:.2f} GiB; "
+              f"stages (minimums of 5): backbone + FPN {bb:.2f} ms, RPN + proposals + box head + "
+              f"detections {trunk - bb:.2f} ms, DensePose pooler + head + predictor "
+              f"{head_ms:.2f} ms, frame paste of {out_boxes.shape[0]} boxes {paste_ms:.2f} ms "
+              f"(the rest {min(times) - trunk - head_ms - paste_ms:.2f} ms)")
+        del model
+
+
+def run_image_predict(pipe, run_predict, argv):
+    """The predict CLI over images with its stages timed on the host clock
+    (each fenced by CUDA synchronisations) and the detectors' outputs
+    recorded on their way.  Returns (prediction, wall s, {stage: s},
+    [keypoint outputs, silhouette outputs])."""
+    det_outs, stage_s, real = [], {}, {}
+
+    def timed(name, label, record=False):
+        real[name] = getattr(pipe, name)
+
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            stage_s[label] = stage_s.get(label, 0.0) + time.perf_counter() - t
+            if record:
+                det_outs.append(out)
+            return out
+        setattr(pipe, name, wrapper)
+    timed("read_images", "PNG reads, padding and resizes to 512")
+    timed("build_detector_models", "detectors built from their pickles")
+    timed("run_detector_batched", "both detectors (first calls)", record=True)
+    timed("load_regressor_variables", "regressor built and loaded")
+    timed("render_body_vis_batch", "body renders")
+    timed("write_png", "PNG writes")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            pred = run_predict.main(argv)
+    finally:
+        for name, fn in real.items():
+            setattr(pipe, name, fn)
+    torch.cuda.synchronize()
+    return pred, time.perf_counter() - t0, stage_s, det_outs
+
+
+def check_image_predict(label, pred, out_dir, det_outs, assets, ckpt, run_predict, faceid_errs):
+    """What every image predict must show: detections of both detectors on
+    every image, finite npy outputs, the rend / reposed / silhouette /
+    joints PNGs, the face-id kernel bit for bit on the inputs of its two
+    launches (their errors appended to `faceid_errs`), and a rerun over
+    the proxies the run cached that gives identical npy outputs."""
+    from straps_tpu_torch.predict.pipeline import REPOSED_CAM_WP
+
+    kp_out, silh_out = det_outs
+    for i, name in enumerate(pred["names"]):
+        sil = np.load(os.path.join(out_dir, "proxies", f"{name}_silhouette.npy"))
+        areas = silh_out["masks"][i][silh_out["valid"][i]].sum(axis=(1, 2)).tolist()
+        print(f"  {name}: keypoint detections {int(kp_out['valid'][i].sum())}, {label} "
+              f"detections {int(silh_out['valid'][i].sum())} (mask areas {areas} px), "
+              f"selected silhouette {int(sil.sum())} px")
+    if not all(kp_out["valid"].any(1)) or not all(silh_out["valid"].any(1)):
+        raise AssertionError(f"{label}: an image without detections")
+    for name in pred["names"]:
+        for key in ("verts", "shape", "pose_rotmats", "cam_wp"):
+            if not np.isfinite(np.load(os.path.join(out_dir, f"{name}_{key}.npy"))).all():
+                raise AssertionError(f"non-finite {name}_{key}.npy")
+        for f in (f"rend_vis/rend_{name}.png", f"rend_vis/reposed_{name}.png",
+                  f"proxy_vis/silhouette_{name}.png", f"proxy_vis/joints2D_{name}.png"):
+            decode_png(os.path.join(out_dir, f))
+    n = len(pred["names"])
+    faceid_errs.append(compare_faceid(
+        f"{label} image predict rend B={n} 256x256",
+        *vis_faceid_inputs(assets, pred["verts"], pred["cam_wp"], 256), 256, 256))
+    faceid_errs.append(compare_faceid(
+        f"{label} image predict reposed B={n} 256x256",
+        *vis_faceid_inputs(assets, pred["reposed_verts"], torch.tensor(REPOSED_CAM_WP).expand(n, 3),
+                           256, rotate_x180=True), 256, 256))
+    cached_out = out_dir + "_cached"
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_predict.main(["--input", os.path.join(out_dir, "proxies"), "--checkpoint", ckpt,
+                          "--out-dir", cached_out, "--device", "cuda", "--no-vis"])
+    same = all(np.array_equal(np.load(os.path.join(out_dir, f"{name}_{key}.npy")),
+                              np.load(os.path.join(cached_out, f"{name}_{key}.npy")))
+               for name in pred["names"] for key in ("verts", "shape", "pose_rotmats", "cam_wp"))
+    print(f"slice: rerun over the {n} cached proxies of the {label} predict: npy outputs "
+          f"identical {same}")
+    if not same:
+        raise AssertionError(f"the cached proxies do not reproduce the {label} image predict")
+
+
+def write_ssp3d_layout(root, assets, n, seed, size=512):
+    """An SSP-3D release layout: `labels.npz` (poses, shapes, genders,
+    (n, 17, 3) joints2D, fnames) and `silhouettes/<fname>` grey PNGs of n
+    synthetic bodies rendered at `size`x`size` (the joints projected in
+    the same frame)."""
+    from straps_tpu_torch.eval_harness.runner import synthesise_proxy_inputs
+    from straps_tpu_torch.utils.png import write_png
+
+    rng = np.random.RandomState(seed)
+    poses = (rng.randn(n, 72) * 0.2).astype(np.float32)
+    shapes = (rng.randn(n, 10) * 0.5).astype(np.float32)
+    sils, j2d = synthesise_proxy_inputs(poses, shapes, assets, size)
+    fnames = [f"image_{i:05d}.png" for i in range(n)]
+    for f, sil in zip(fnames, sils):
+        write_png(os.path.join(root, "silhouettes", f), (sil > 0).astype(np.uint8) * 255)
+    np.savez(os.path.join(root, "labels.npz"), fnames=np.asarray(fnames), shapes=shapes,
+             poses=poses, genders=np.asarray(["m", "f"] * (n // 2)),
+             joints2D=np.concatenate([j2d, np.ones((n, 17, 1), np.float32)], -1))
+
+
 def main() -> int:
     t_main = time.perf_counter()
     # 1. Device.
@@ -722,6 +1075,7 @@ def main() -> int:
         raise RuntimeError("chip_smoke.py must run from a checkout holding straps_tpu_torch/")
     from straps_tpu_torch.cli import run_eval, run_predict, run_train
     from straps_tpu_torch.config import PredictConfig, TrainConfig
+    from straps_tpu_torch.eval_harness.datasets import load_eval_dataset
     from straps_tpu_torch.eval_harness.runner import run_evaluation, synthesise_proxy_inputs
     from straps_tpu_torch.predict.pipeline import (
         REPOSED_CAM_WP, load_regressor_variables, make_predict_fn, predict_3d, save_proxies,
@@ -993,44 +1347,13 @@ def main() -> int:
     img_names = write_detector_pngs(assets, img_dir)
     pkls = write_detector_pkls(tmp.name)
     img_out = os.path.join(tmp.name, "predict_images")
-    # The CLI's stages, timed on the host clock (each fenced by a CUDA
-    # synchronisation), and the detectors' outputs, recorded on their way.
-    det_outs, stage_s, real = [], {}, {}
-
-    def timed(name, label, record=False):
-        real[name] = getattr(pipe, name)
-
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = real[name](*args, **kwargs)
-            torch.cuda.synchronize()
-            stage_s[label] = stage_s.get(label, 0.0) + time.perf_counter() - t
-            if record:
-                det_outs.append(out)
-            return out
-        setattr(pipe, name, wrapper)
-    timed("read_images", "PNG reads, padding and resizes to 512")
-    timed("build_detector_models", "detectors built from their pickles")
-    timed("run_detector_batched", "both detectors (first calls)", record=True)
-    timed("load_regressor_variables", "regressor built and loaded")
-    timed("render_body_vis_batch", "body renders")
-    timed("write_png", "PNG writes")
     image_argv = ["--input", img_dir, "--silh-from", "pointrend", "--keypoint-checkpoint",
                   pkls[0], "--silhouette-checkpoint", pkls[1], "--checkpoint", ckpt_pred,
                   "--device", "cuda"]
     syncs0 = dict(det_ops.NMS_STATS)
-    torch.cuda.synchronize()
     reset_launches()
-    t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            pred_img = run_predict.main(image_argv + ["--out-dir", img_out])
-    finally:
-        for name, fn in real.items():
-            setattr(pipe, name, fn)
-    torch.cuda.synchronize()
-    image_s = time.perf_counter() - t0
+    pred_img, image_s, stage_s, det_outs = run_image_predict(
+        pipe, run_predict, image_argv + ["--out-dir", img_out])
     image_launches = CR.faceid_raster_kernel.launches
     n_img = len(img_names)
     print(f"slice: predict of {n_img} PNG images (8 at 640x480, 8 at 1024x768) through "
@@ -1043,49 +1366,76 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3f} s" for k, v in stage_s.items())
           + f", the rest (assets, selection, proxies, regressor forward, npy writes) "
           f"{image_s - sum(stage_s.values()):.3f} s")
-    kp_out, silh_out = det_outs
-    for i, name in enumerate(pred_img["names"]):
-        sil = np.load(os.path.join(img_out, "proxies", f"{name}_silhouette.npy"))
-        areas = silh_out["masks"][i][silh_out["valid"][i]].sum(axis=(1, 2)).tolist()
-        print(f"  {name}: keypoint detections {int(kp_out['valid'][i].sum())}, PointRend "
-              f"detections {int(silh_out['valid'][i].sum())} (mask areas {areas} px), "
-              f"selected silhouette {int(sil.sum())} px")
     if image_launches != 2:
         raise AssertionError(f"image predict renders: {image_launches} face-id launches, want 2")
-    if not all(kp_out["valid"].any(1)) or not all(silh_out["valid"].any(1)):
-        raise AssertionError("an image without detections")
-    for name in pred_img["names"]:
-        for key in ("verts", "shape", "pose_rotmats", "cam_wp"):
-            if not np.isfinite(np.load(os.path.join(img_out, f"{name}_{key}.npy"))).all():
-                raise AssertionError(f"non-finite {name}_{key}.npy")
-        for f in (f"rend_vis/rend_{name}.png", f"rend_vis/reposed_{name}.png",
-                  f"proxy_vis/silhouette_{name}.png", f"proxy_vis/joints2D_{name}.png"):
-            decode_png(os.path.join(img_out, f))
-    img_rend_in = vis_faceid_inputs(assets, pred_img["verts"], pred_img["cam_wp"], 256)
-    faceid_errs.append(compare_faceid(f"image predict rend B={n_img} 256x256", *img_rend_in,
-                                      256, 256))
-    faceid_errs.append(compare_faceid(
-        f"image predict reposed B={n_img} 256x256",
-        *vis_faceid_inputs(assets, pred_img["reposed_verts"],
-                           torch.tensor(REPOSED_CAM_WP).expand(n_img, 3), 256, rotate_x180=True),
-        256, 256))
+    check_image_predict("PointRend", pred_img, img_out, det_outs, assets, ckpt_pred, run_predict,
+                        faceid_errs)
 
-    # The cached proxies the run wrote reproduce its npy outputs.
-    cached_out = os.path.join(tmp.name, "predict_images_cached")
-    with contextlib.redirect_stdout(io.StringIO()):
-        run_predict.main(["--input", os.path.join(img_out, "proxies"), "--checkpoint",
-                          ckpt_pred, "--out-dir", cached_out, "--device", "cuda", "--no-vis"])
-    same = all(np.array_equal(np.load(os.path.join(img_out, f"{name}_{key}.npy")),
-                              np.load(os.path.join(cached_out, f"{name}_{key}.npy")))
-               for name in pred_img["names"] for key in ("verts", "shape", "pose_rotmats",
-                                                          "cam_wp"))
-    print(f"slice: rerun over the {n_img} cached proxies: npy outputs identical {same}")
-    if not same:
-        raise AssertionError("the cached proxies do not reproduce the image predict")
-
-    # Both detectors on the card and on the CPU, on 2 of the images.
+    # Both detectors on the card and on the CPU, on 2 of the images, and the
+    # Keypoint-RCNN trunk's stages between the RPN outputs and the boxes.
     frames = pipe.read_images(img_dir, DET_FRAME, "cpu")[1][[0, 8]]       # one of each size
     print("\n".join(detector_card_vs_cpu(pkls, frames)))
+    print(box_drift_stages(pkls[0], frames))
+
+    # 4e. The DensePose route: the predict CLI from the same 16 PNG images
+    # through Keypoint-RCNN R50-FPN + DensePose-RCNN R101-FPN at full width
+    # (800² detectors, 512 proposals, 8 detections, the DensePose head at
+    # 14² x 512 and S/I/U/V at 56², the 512 frame).
+    dp_out = os.path.join(tmp.name, "predict_densepose")
+    dp_argv = ["--input", img_dir, "--silh-from", "densepose", "--keypoint-checkpoint", pkls[0],
+               "--silhouette-checkpoint", pkls[2], "--checkpoint", ckpt_pred, "--device", "cuda"]
+    syncs0 = dict(det_ops.NMS_STATS)
+    reset_launches()
+    pred_dp, dp_s, stage_s, det_outs = run_image_predict(pipe, run_predict,
+                                                         dp_argv + ["--out-dir", dp_out])
+    dp_launches = CR.faceid_raster_kernel.launches
+    print(f"slice: predict of {n_img} PNG images through Keypoint-RCNN R50-FPN + DensePose-RCNN "
+          f"R101-FPN at {DET_TEST}x{DET_TEST}, frame {DET_FRAME}, regressor at 256x256, renders "
+          f"included, first run: {dp_s:.3f} s wall ({n_img / dp_s:.2f} images/s), face-id "
+          f"kernel launches {dp_launches} (rend 1 + reposed 1), packed kernel launches "
+          f"{CR.packed_raster_kernel.launches}, NMS host synchronisations "
+          f"{det_ops.NMS_STATS['syncs'] - syncs0['syncs']}; of the wall: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in stage_s.items())
+          + f", the rest {dp_s - sum(stage_s.values()):.3f} s")
+    if dp_launches != 2:
+        raise AssertionError(f"DensePose predict renders: {dp_launches} face-id launches, want 2")
+    if "part_map" not in det_outs[1]:
+        raise AssertionError("the DensePose overlay was not built from the frame part maps")
+    check_image_predict("DensePose", pred_dp, dp_out, det_outs, assets, ckpt_pred, run_predict,
+                        faceid_errs)
+    print(densepose_card_vs_cpu(pkls[2], frames))
+
+    # 4f. Evaluation on an SSP-3D release layout (labels.npz + silhouette
+    # PNGs of 64 synthetic bodies at 512²) at 256², batch 32, in the image
+    # frame and in the crop frame.
+    ssp3d = os.path.join(tmp.name, "ssp_3d")
+    write_ssp3d_layout(ssp3d, assets, n, seed=3)
+    release = {}
+    for frame in ("image", "crop"):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            release[frame] = run_eval.main(["--dataset", ssp3d, "--checkpoint", ckpt, "--img-wh",
+                                            "256", "--batch-size", str(batch), "--iou-frame",
+                                            frame, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        frame_launches = CR.packed_raster_kernel.launches
+        if frame == "image":
+            release_launches = frame_launches
+        print(f"slice: eval of the {n}-sample SSP-3D release layout (512x512 silhouettes) at "
+              f"256x256, batch {batch}, --iou-frame {frame}, first run: {wall:.3f} s wall "
+              f"({n / wall:.2f} samples/s), packed kernel launches {frame_launches} (one per "
+              f"batch), silhouette IoU {release[frame]['silhouette_ious']:.4f}, pves "
+              f"{release[frame]['pves']:.4f}")
+        if not all(np.isfinite(v) for v in release[frame].values()):
+            raise AssertionError(f"non-finite release-layout metrics: {release[frame]}")
+        if frame_launches != n // batch:
+            raise AssertionError(f"release-layout eval: {frame_launches} packed launches, want "
+                                 f"{n // batch}")
+    if not release["image"]["silhouette_ious"] > 0.2:
+        raise AssertionError(f"image-frame IoU {release['image']['silhouette_ious']} <= 0.2")
 
     # 5. Times.
     flat, bounds, attr = smpl_kernel_inputs(assets, 256, 64, seed=5)
@@ -1123,7 +1473,6 @@ def main() -> int:
     profile_run(card, f"predict of {n} cached proxies at 256x256, renders included", n,
                 "images", lambda: predict_3d(predict_cfg, device="cuda"))
 
-
     # The image slice: each detector's forward on a chunk of 8 (float32 and
     # bfloat16 backbone), then the warm image predict under the profiler,
     # with its peak device memory.
@@ -1138,6 +1487,25 @@ def main() -> int:
                 lambda: predict_3d(image_cfg, device="cuda"))
     print(f"times on {card}: image predict peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    # The DensePose route: its detector on a chunk of 8 (float32 and
+    # bfloat16 backbone) by stages, the warm DensePose image predict under
+    # the profiler, and the warm release-layout evaluation.
+    densepose_times(card, pkls[2], det_frames)
+    dp_cfg = PredictConfig(input_dir=img_dir, checkpoint=ckpt_pred, silhouettes_from="densepose",
+                           keypoint_checkpoint=pkls[0], silhouette_checkpoint=pkls[2],
+                           out_dir=dp_out)
+    torch.cuda.reset_peak_memory_stats()
+    profile_run(card, f"predict of {n_img} PNG images through Keypoint-RCNN + DensePose-RCNN at "
+                f"{DET_TEST}x{DET_TEST}, renders included", n_img, "images",
+                lambda: predict_3d(dp_cfg, device="cuda"))
+    print(f"times on {card}: DensePose image predict peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    release_data = load_eval_dataset(ssp3d)
+    profile_run(card, f"eval of the {n}-sample SSP-3D release layout at 256x256, batch {batch}, "
+                f"image-frame IoU", n, "samples",
+                lambda: run_evaluation(release_data, PredictConfig(checkpoint=ckpt),
+                                       batch_size=batch, device="cuda", iou_frame="image"))
 
     # The train step at the released configuration (batch 140, 256x256,
     # bfloat16 encoder): the whole step as the loop runs it (draws,
@@ -1201,20 +1569,23 @@ def main() -> int:
         "source": "straps_tpu_torch/csrc/raster_packed.cu",
         "replaces": "straps_tpu/render/pallas_raster.py:106",
         "inputs": f"ms, plain_ms, bound_ms: B=64 256x256 culled eval bodies; train_*: "
-                  f"B={B} 256x256 first train batch (culled, jittered cameras, vertex noise)",
+                  f"B={B} 256x256 first train batch (culled, jittered cameras, vertex noise); "
+                  f"release_eval_launches: the {n}-sample SSP-3D-layout eval, image frame",
         "launches": launches + train_launches, "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "train_ms": train_kernel_ms, "train_plain_ms": train_plain_ms,
-        "train_bound_ms": train_bound_ms, "train_bound_by": train_bound_by}, {
+        "train_bound_ms": train_bound_ms, "train_bound_by": train_bound_by,
+        "release_eval_launches": release_launches}, {
         "name": "raster_faceid", "route": "cuda",
         "source": "straps_tpu_torch/csrc/raster_faceid.cu",
         "replaces": "straps_tpu/render/pallas_raster.py:50",
-        "inputs": f"B={n} 256x256 unculled predict rend bodies; image_path_launches: the "
-                  f"predict from {n_img} PNG images (rend + reposed)",
+        "inputs": f"B={n} 256x256 unculled predict rend bodies; image_path_launches and "
+                  f"densepose_path_launches: the predicts from {n_img} PNG images through "
+                  f"PointRend and DensePose (rend + reposed)",
         "launches": faceid_launches, "max_abs_err": max(faceid_errs), "ms": faceid_ms,
         "plain_ms": faceid_plain_ms, "bound_ms": faceid_bound_ms,
         "bound_by": faceid_bound_by, "library_ms": None,
-        "image_path_launches": image_launches}]}))
+        "image_path_launches": image_launches, "densepose_path_launches": dp_launches}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

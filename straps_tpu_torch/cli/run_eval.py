@@ -2,6 +2,7 @@
 
     python -m straps_tpu_torch.cli.run_eval --dataset eval.npz \
         --checkpoint straps_model_checkpoint.tar --metrics pves silhouette_ious
+    python -m straps_tpu_torch.cli.run_eval --dataset ssp_3d --iou-frame image
 
 Runs on CUDA unless `--device cpu` is given.  Prints the final metrics as
 JSON and returns them.
@@ -16,10 +17,12 @@ from straps_tpu_torch.eval_harness.runner import DEFAULT_METRICS, run_evaluation
 
 
 def build_parser():
-    parser = argparse.ArgumentParser(description="Evaluate on a canonical eval npz")
+    parser = argparse.ArgumentParser(description="Evaluate on SSP-3D/3DPW-style data")
     parser.add_argument("--dataset", required=True,
-                        help="canonical eval npz (poses, shapes, optional "
-                             "genders, silhouettes + joints2D)")
+                        help="eval data: an SSP-3D release root (labels.npz + "
+                             "silhouettes/), that labels.npz itself, a 3DPW root, or a "
+                             "canonical eval npz (poses, shapes, optional genders, "
+                             "silhouettes + joints2D)")
     parser.add_argument("--checkpoint", default=None,
                         help="reference-format .tar; none = seeded random weights")
     parser.add_argument("--metrics", nargs="+", default=list(DEFAULT_METRICS))
@@ -32,6 +35,10 @@ def build_parser():
                         choices=["auto", "clean", "legacy"],
                         help="proxy heatmap distribution; 'auto' resolves "
                              "from the checkpoint (reference .tar -> 'legacy')")
+    parser.add_argument("--iou-frame", default="crop", choices=["crop", "image"],
+                        help="silhouette-IoU frame: 'crop' (the proxy crop the camera "
+                             "lives in) or 'image' (the dataset's frame through the "
+                             "inverse crop: the paper's SSP-3D mIoU protocol)")
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (default; raises without a card) or 'cpu'")
     parser.add_argument("overrides", nargs="*",
@@ -49,7 +56,8 @@ def main(argv=None):
                            metrics=tuple(args.metrics),
                            batch_size=args.batch_size,
                            save_per_frame=args.save_per_frame is not None,
-                           save_path=args.save_per_frame, device=args.device)
+                           save_path=args.save_per_frame, device=args.device,
+                           iou_frame=args.iou_frame)
     final = {k: float(v) for k, v in final.items()}
     print(json.dumps(final, indent=2))
     return final

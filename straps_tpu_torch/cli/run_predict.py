@@ -7,16 +7,16 @@
         --checkpoint straps_model_checkpoint.tar --out-dir predict_out
 
 With `--silh-from cached`, `--input` holds `<name>_silhouette.npy` +
-`<name>_joints2D.npy` per image; with `--silh-from pointrend`, PNG images,
-which go through Keypoint-RCNN and PointRend (detectron2 pickles).  Runs on
-CUDA unless `--device cpu` is given.  The DensePose front end
-(`--silh-from densepose`) is the next slice of the port and is refused.
+`<name>_joints2D.npy` per image; with `--silh-from pointrend` or
+`densepose`, PNG images, which go through Keypoint-RCNN R50-FPN and
+PointRend R50-FPN or DensePose-RCNN R101-FPN (detectron2 pickles).  Runs on
+CUDA unless `--device cpu` is given.
 """
 
 import argparse
 
 from straps_tpu_torch.config import PredictConfig, apply_cli_overrides
-from straps_tpu_torch.predict.pipeline import DENSEPOSE_REFUSED, predict_3d
+from straps_tpu_torch.predict.pipeline import predict_3d
 
 _DETECTOR_FLAGS = ("keypoint_checkpoint", "silhouette_checkpoint", "allow_random_detectors")
 
@@ -24,21 +24,23 @@ _DETECTOR_FLAGS = ("keypoint_checkpoint", "silhouette_checkpoint", "allow_random
 def build_parser():
     parser = argparse.ArgumentParser(description="Predict 3D human shape/pose")
     parser.add_argument("--input", required=True,
-                        help="input dir: *.png images (--silh-from pointrend) or "
-                             "cached proxies, *_silhouette.npy + *_joints2D.npy")
+                        help="input dir: *.png images (--silh-from pointrend|densepose) "
+                             "or cached proxies, *_silhouette.npy + *_joints2D.npy")
     parser.add_argument("--checkpoint", default=None,
                         help="reference-format .tar; none = seeded random weights")
     parser.add_argument("--silh-from", default="cached",
                         choices=["cached", "pointrend", "densepose"],
-                        help="'cached' proxies or the 'pointrend' detector front end; "
-                             "'densepose' is not ported yet and is refused")
+                        help="'cached' proxies, or the detector front end with PointRend "
+                             "('pointrend') or DensePose ('densepose') silhouettes")
     parser.add_argument("--out-dir", default="predict_out")
     parser.add_argument("--resnet-layers", type=int, default=18)
     parser.add_argument("--smpl-dir", default=None)
     parser.add_argument("--keypoint-checkpoint", default=None,
                         help="detectron2 pkl of Keypoint-RCNN R50-FPN")
     parser.add_argument("--silhouette-checkpoint", default=None,
-                        help="detectron2 pkl of PointRend R50-FPN")
+                        help="detectron2 pkl of the silhouette detector: PointRend "
+                             "R50-FPN (--silh-from pointrend) or DensePose-RCNN R101-FPN "
+                             "(densepose_rcnn_R_101_FPN_s1x, --silh-from densepose)")
     parser.add_argument("--allow-random-detectors", action="store_true",
                         help="run the detector front end with seeded RANDOM weights "
                              "(meaningless proxies: smoke and throughput runs only)")
@@ -60,12 +62,10 @@ def build_parser():
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.silh_from == "densepose":
-        parser.error(f"--silh-from densepose: {DENSEPOSE_REFUSED}")
     given = [f"--{f.replace('_', '-')}" for f in _DETECTOR_FLAGS if getattr(args, f)]
     if given and args.silh_from == "cached":
         parser.error(f"{' '.join(given)}: these flags serve only the detector front end "
-                     f"(--silh-from pointrend)")
+                     f"(--silh-from pointrend|densepose)")
     cfg = PredictConfig(input_dir=args.input, checkpoint=args.checkpoint,
                         silhouettes_from=args.silh_from, out_dir=args.out_dir,
                         smpl_dir=args.smpl_dir, heatmap_mode=args.heatmap_mode,

@@ -102,12 +102,13 @@ class TrainConfig:
 class PredictConfig:
     input_dir: str = "demo"
     checkpoint: Optional[str] = None
-    # 'cached' reads `*_silhouette.npy` + `*_joints2D.npy`; 'pointrend'
-    # runs the Keypoint-RCNN + PointRend front end on `*.png` images; the
-    # 'densepose' front end is not ported yet.
+    # 'cached' reads `*_silhouette.npy` + `*_joints2D.npy`; 'pointrend' and
+    # 'densepose' run Keypoint-RCNN with PointRend-RCNN R50-FPN or
+    # DensePose-RCNN R101-FPN on `*.png` images.
     silhouettes_from: str = "cached"
     proxy_dir: Optional[str] = None    # dir of cached proxies (default input_dir)
-    # detectron2 pickles of the two detectors, read by name.
+    # detectron2 pickles of the two detectors (the silhouette one is
+    # PointRend's or DensePose's, as `silhouettes_from`), read by name.
     keypoint_checkpoint: Optional[str] = None
     silhouette_checkpoint: Optional[str] = None
     # Without both checkpoints the front end refuses to run unless this is

@@ -1,11 +1,12 @@
 """Offline evaluation harness (counterpart of
-`straps_tpu/eval_harness/runner.py`, crop-frame IoU).
+`straps_tpu/eval_harness/runner.py`).
 
 Batched proxy construction -> prediction rollout -> metric math -> tracker
 aggregation, with per-sample gendered body models for the ground truth and
-silhouette IoU from re-rendering the predictions.  When the dataset ships
-neither silhouettes nor 2D joints, they are synthesised from the GT
-parameters with the renderer (synthetic-eval mode).
+silhouette IoU from re-rendering the predictions, in the proxy's crop frame
+or, through the inverse crop, in the dataset's image frame.  When the
+dataset ships neither silhouettes nor 2D joints, they are synthesised from
+the GT parameters with the renderer (synthetic-eval mode).
 
 On CUDA every render goes through the packed rasteriser kernel, one launch
 per batch; on the CPU through its plain version, in sub-batches sized by
@@ -34,6 +35,7 @@ from straps_tpu_torch.smpl.model import (
     select_joint_sets, smpl_forward, smpl_forward_axis_angle,
 )
 from straps_tpu_torch.utils.device import resolve_device
+from straps_tpu_torch.utils.image import cv2_resize_nearest
 
 DEFAULT_METRICS = ("pves", "pves_sc", "pves_pa", "pve-ts", "pve-ts_sc",
                    "mpjpes", "mpjpes_sc", "mpjpes_pa", "silhouette_ious")
@@ -86,22 +88,67 @@ def synthesise_proxy_inputs(poses: np.ndarray, shapes: np.ndarray, assets,
     return torch.cat(sils).cpu().numpy(), torch.cat(j2ds).cpu().numpy()
 
 
+def silhouette_crop_box(sil: np.ndarray, scale_factor: float = 1.2) -> Tuple[int, int, int, int]:
+    """(top_r, top_c, crop_h, crop_w) of the square crop the proxy of this
+    silhouette is built in: the bounding box's float32 corner arithmetic,
+    truncated toward zero, as `geometry/bbox.py::square_bbox_corners`;
+    (0, 0, 1, 1) for an empty silhouette."""
+    sil = np.asarray(sil) > 0
+    rows = np.flatnonzero(sil.any(axis=1))
+    cols = np.flatnonzero(sil.any(axis=0))
+    if len(rows) == 0 or len(cols) == 0:
+        return 0, 0, 1, 1
+    r0, r1 = int(rows[0]), int(rows[-1])
+    c0, c1 = int(cols[0]), int(cols[-1])
+    f32 = np.float32
+    centre_r = f32(r0 + r1) / f32(2.0)
+    centre_c = f32(c0 + c1) / f32(2.0)
+    half = f32(max(r1 - r0, c1 - c0)) * f32(scale_factor) / f32(2.0)
+    top_r, top_c = int(centre_r - half), int(centre_c - half)
+    bot_r, bot_c = int(centre_r + half), int(centre_c + half)
+    return top_r, top_c, max(bot_r - top_r, 1), max(bot_c - top_c, 1)
+
+
+def paste_crop_to_image_frame(crop_sil: torch.Tensor, box, out_h: int,
+                              out_w: int) -> torch.Tensor:
+    """The inverse of the proxy crop: a crop-frame silhouette resized by
+    nearest neighbour (cv2's INTER_NEAREST) to its (crop_h, crop_w) box and
+    pasted, cut at the frame, into a zeroed float32 (out_h, out_w) canvas
+    on its device."""
+    top_r, top_c, ch, cw = box
+    canvas = torch.zeros(out_h, out_w, dtype=torch.float32, device=crop_sil.device)
+    resized = cv2_resize_nearest(crop_sil.to(torch.float32), cw, ch)
+    r0, c0 = max(top_r, 0), max(top_c, 0)
+    r1, c1 = min(top_r + ch, out_h), min(top_c + cw, out_w)
+    if r1 > r0 and c1 > c0:
+        canvas[r0:r1, c0:c1] = resized[r0 - top_r:r1 - top_r, c0 - top_c:c1 - top_c]
+    return canvas
+
+
 @torch.inference_mode()
 def run_evaluation(dataset: Dict[str, np.ndarray], cfg: PredictConfig,
                    metrics=DEFAULT_METRICS, batch_size: int = 8,
                    save_per_frame: bool = False,
                    save_path: Optional[str] = None,
                    gender_assets: Optional[Dict] = None,
-                   device="cuda") -> Dict[str, float]:
-    """Evaluate a checkpoint on a canonical eval dataset.
+                   device="cuda", iou_frame: str = "crop") -> Dict[str, float]:
+    """Evaluate a checkpoint on an eval dataset (`datasets.py`).
 
     Every sample is evaluated: the last partial batch is padded with
     repeats of the last sample and the padding is dropped before
     aggregation.  Ground truth goes through the per-sample gendered body
-    model.  Silhouette IoU compares, in the crop frame, the predicted mesh
-    rendered with the weak-perspective camera the regressor emitted against
-    the dataset silhouette put through the same crop (proxy channel 0).
+    model.  Silhouette IoU renders the predicted mesh with the
+    weak-perspective camera the regressor emitted, in the crop frame the
+    proxy was built in, and compares it, by `iou_frame`:
+      - "crop": with the dataset silhouette put through the same crop
+        (proxy channel 0);
+      - "image": pasted back through the inverse crop
+        (`paste_crop_to_image_frame`), with the dataset silhouette at its
+        own resolution: the SSP-3D protocol the paper's mIoU is reported
+        under.
     """
+    if iou_frame not in ("crop", "image"):
+        raise ValueError(f"iou_frame must be 'crop' or 'image', got {iou_frame!r}")
     dev = resolve_device(device)
     assets = load_assets(cfg.smpl_dir, device=dev)
     if gender_assets is None:
@@ -184,9 +231,18 @@ def run_evaluation(dataset: Dict[str, np.ndarray], cfg: PredictConfig,
         pred_dict = {"verts": pred["verts"], "joints3D": pred_h36mlsp}
         target_dict = {"verts": gt_verts, "joints3D": gt_h36mlsp}
         if want_iou:
-            pred_dict["silhouettes"] = _render_silhouettes(
-                pred["verts"], pred["cam_t"], K, assets.faces, img_wh)
-            target_dict["silhouettes"] = proxies[..., 0]
+            pred_sil = _render_silhouettes(pred["verts"], pred["cam_t"], K, assets.faces,
+                                           img_wh)
+            if iou_frame == "image":
+                img_h, img_w = sils.shape[1:3]
+                pred_dict["silhouettes"] = torch.stack([
+                    paste_crop_to_image_frame(pred_sil[b], silhouette_crop_box(sils[i]),
+                                              img_h, img_w)
+                    for b, i in enumerate(idx)])
+                target_dict["silhouettes"] = torch.as_tensor(sils[idx], device=dev)
+            else:
+                pred_dict["silhouettes"] = pred_sil
+                target_dict["silhouettes"] = proxies[..., 0]
 
         pf = compute_per_frame_metrics(tuple(metrics), pred_dict, target_dict,
                                        img_wh, pred_reposed=pred["reposed_verts"],

@@ -18,7 +18,7 @@ from torch import nn
 
 # Flax scope -> detectron2 module name, for the scopes without an index.
 _RPN = {"conv": "conv", "objectness": "objectness_logits", "anchor_deltas": "anchor_deltas"}
-_DECONV_NAMES = {"score_lowres"}
+_DECONV_NAMES = {"score_lowres", "ann_index_lowres", "index_uv_lowres", "u_lowres", "v_lowres"}
 # FCs over a flattened (C, 7, 7) map: flax flattens (7, 7, C).
 _FLATTEN_FC = {"roi_heads.box_head.fc1": 7, "roi_heads.mask_coarse_head.coarse_mask_fc1": 7}
 
@@ -82,8 +82,13 @@ def _d2_module(path: Tuple[str, ...]) -> str:
     if path[:2] == ("trunk", "box_head"):
         scope = "box_head" if path[2] in ("fc1", "fc2") else "box_predictor"
         return f"roi_heads.{scope}.{path[2]}"
+    if path[0] == "densepose_head" and not path[1].startswith("body_conv_fcn"):
+        raise NotImplementedError(
+            f"DensePose DeepLab head scope {'/'.join(path)}: the port has the V1ConvX head "
+            f"only (DensePoseDeepLabHead, ASPP and NonLocalBlock2D are not ported)")
     scope = {"keypoint_head": "keypoint_head", "coarse_head": "mask_coarse_head",
-             "point_head": "mask_point_head"}[path[0]]
+             "point_head": "mask_point_head", "densepose_head": "densepose_head",
+             "densepose_predictor": "densepose_predictor"}[path[0]]
     return f"roi_heads.{scope}.{path[1]}"
 
 
@@ -96,14 +101,15 @@ def _leaves(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
 
 
 def flax_detector_to_torch_state_dict(variables) -> Dict[str, np.ndarray]:
-    """The JAX `KeypointRCNN` / `PointRendRCNN` variables (numpy arrays) ->
+    """The JAX `KeypointRCNN` / `PointRendRCNN` / `DensePoseRCNN` variables
+    (numpy arrays; the V1ConvX DensePose head, a DeepLab scope raises) ->
     the port's state dict under detectron2's names: the inverse of the JAX
     package's `convert_d2_state`.  Convolutions HWIO -> OIHW, the keypoint
-    deconvolution flipped back to torch's (in, out, kh, kw), dense (in, out)
-    -> (out, in), the FCs over a flattened map permuted HWC -> CHW, the
-    point head's dense layers -> conv1d (out, in, 1), BatchNorm scale, bias
-    and statistics -> FrozenBatchNorm's weight, bias, running mean and
-    variance."""
+    and DensePose deconvolutions flipped back to torch's (in, out, kh, kw),
+    dense (in, out) -> (out, in), the FCs over a flattened map permuted HWC
+    -> CHW, the point head's dense layers -> conv1d (out, in, 1), BatchNorm
+    scale, bias and statistics -> FrozenBatchNorm's weight, bias, running
+    mean and variance."""
     out = {}
     for path, v in _leaves(variables["params"]):
         module, leaf = _d2_module(path[:-1]), path[-1]

@@ -237,7 +237,7 @@ def roi_align(features: torch.Tensor, boxes: torch.Tensor, spatial_scale: float,
     Args:
       features: (B, H, W, C); boxes: (B, R, 4) xyxy in image coordinates.
     Returns:
-      (B, R, output_size, output_size, C).
+      (B, R, output_size, output_size, C) in the features' dtype.
     """
     B, H, W, C = features.shape
     R = boxes.shape[1]
@@ -275,7 +275,7 @@ def roi_align(features: torch.Tensor, boxes: torch.Tensor, spatial_scale: float,
     xx = xs[:, :, None, :].expand(B, R, Q, Q)
     yy = ys[:, :, :, None].expand(B, R, Q, Q)
     samples = bilinear_sample(features, xx, yy, mode=mode)
-    return samples.reshape(B, R, O, s, O, s, C).mean(dim=(3, 5))
+    return samples.reshape(B, R, O, s, O, s, C).mean(dim=(3, 5)).to(features.dtype)
 
 
 def assign_levels(boxes: torch.Tensor, num_levels: int, min_level: int,

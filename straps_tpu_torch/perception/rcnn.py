@@ -1,10 +1,11 @@
 """Generalized R-CNN compositions: Keypoint-RCNN and PointRend-RCNN on a
-ResNet-50 FPN trunk (counterpart of `straps_tpu/perception/rcnn.py`; the
-DensePose route is not ported yet).
+ResNet-50 FPN trunk, DensePose-RCNN on a ResNet-101 FPN trunk (counterpart
+of `straps_tpu/perception/rcnn.py`).
 
 detectron2's module tree and state-dict names (`backbone.*`,
 `proposal_generator.rpn_head.*`, `roi_heads.{box_head,box_predictor,
-keypoint_head,mask_coarse_head,mask_point_head}.*`).  A forward takes a
+keypoint_head,mask_coarse_head,mask_point_head,densepose_head,
+densepose_predictor}.*`).  A forward takes a
 batch of normalised images: the backbone, the FPN and the RPN head run on
 the whole batch; proposals, NMS, detections and the ROI heads are each
 image's own, with static counts and validity masks.
@@ -17,6 +18,9 @@ import torch
 from torch import nn
 
 from straps_tpu_torch.perception.anchors import fpn_anchors
+from straps_tpu_torch.perception.densepose import (
+    DensePosePredictor, DensePoseV1ConvXHead, densepose_to_iuv, paste_part_labels,
+)
 from straps_tpu_torch.perception.fpn import FPN_STRIDES, FPNBackbone, FrozenBatchNorm2d
 from straps_tpu_torch.perception.heads import (
     FastRCNNConvFCHead, FastRCNNOutputLayers, KRCNNConvDeconvUpsampleHead, box_inference,
@@ -50,20 +54,28 @@ class _Scope(nn.Module):
 
 
 class _DetectorBase(nn.Module):
-    """Backbone + RPN + box head, shared by both models.  Boxes, keypoints
-    and masks come back in an `output_size` frame (0: the input's)."""
+    """Backbone + RPN + box head, shared by the three models.  Boxes,
+    keypoints and masks come back in an `output_size` frame (0: the
+    input's).  The box pooler is detectron2's ROIAlignV2 with adaptive
+    sampling (`box_pooler_aligned=True`, `box_pooler_sampling_ratio=0`,
+    the Keypoint-RCNN and PointRend configs) or the legacy ROIAlign at a
+    fixed ratio (DensePose: False, 2)."""
 
     def __init__(self, num_classes: int, post_nms_topk: int = POST_NMS_TOPK,
                  max_detections: int = MAX_DETECTIONS, output_size: int = 0,
-                 backbone_dtype: Optional[str] = None, score_thresh: float = 0.05):
+                 backbone_dtype: Optional[str] = None, score_thresh: float = 0.05,
+                 backbone_depth: int = 50, box_pooler_aligned: bool = True,
+                 box_pooler_sampling_ratio: int = 0):
         super().__init__()
         self.post_nms_topk, self.max_detections = post_nms_topk, max_detections
         self.output_size, self.score_thresh = output_size, score_thresh
+        self.box_pooler_aligned = box_pooler_aligned
+        self.box_pooler_sampling_ratio = box_pooler_sampling_ratio
         if backbone_dtype is not None and backbone_dtype not in _DTYPES:
             raise ValueError(f"backbone_dtype must be 'float32', 'bfloat16' or None, "
                              f"got {backbone_dtype!r}")
         self.compute_dtype = _DTYPES.get(backbone_dtype)
-        self.backbone = FPNBackbone(50)
+        self.backbone = FPNBackbone(backbone_depth)
         self.proposal_generator = _Scope()
         self.proposal_generator.rpn_head = RPNHead()
         self.roi_heads = _Scope()
@@ -83,7 +95,9 @@ class _DetectorBase(nn.Module):
         proposals, _, p_valid = generate_proposals(logits, deltas, anchors, img_size,
                                                    post_nms_topk=self.post_nms_topk)
         nhwc = [f.permute(0, 2, 3, 1).contiguous() for f in feats[:4]]
-        roi = pooled_box_features(nhwc, proposals, 7, compute_dtype=self.compute_dtype)
+        roi = pooled_box_features(nhwc, proposals, 7, aligned=self.box_pooler_aligned,
+                                  sampling_ratio=self.box_pooler_sampling_ratio,
+                                  compute_dtype=self.compute_dtype)
         scores, box_deltas = self.roi_heads.box_predictor(self.roi_heads.box_head(roi))
         P = proposals.shape[1]
         boxes, det_scores, valid = box_inference(
@@ -142,6 +156,44 @@ class PointRendRCNN(_DetectorBase):
         masks = paste_mask(refined[:, 0], out_boxes.reshape(B * D, 4), out_size, out_size)
         return {"boxes": out_boxes, "scores": scores, "valid": valid,
                 "masks": masks.view(B, D, out_size, out_size)}
+
+
+class DensePoseRCNN(_DetectorBase):
+    """Person detection + DensePose IUV (the reference's DensePose-RCNN
+    R101-FPN, `predict/predict_densepose.py`, detectron2's
+    `densepose_rcnn_R_101_FPN_s1x`): the legacy ratio-2 box pooler, the
+    DensePose pooler at 14x14 (legacy, ratio 2), the V1ConvX head and the
+    four-branch predictor at 56x56, the IUV selection per ROI, and each
+    detection's part labels pasted into the `output_size` frame
+    (`paste_part_labels`).  `masks` is `part_map > 0`, the binary
+    silhouette STRAPS consumes; `part_map` (uint8) is returned too with
+    `output_part_maps`."""
+
+    def __init__(self, backbone_depth: int = 101, output_part_maps: bool = False, **kwargs):
+        super().__init__(num_classes=1, backbone_depth=backbone_depth, box_pooler_aligned=False,
+                         box_pooler_sampling_ratio=2, **kwargs)
+        self.output_part_maps = output_part_maps
+        self.roi_heads.densepose_head = DensePoseV1ConvXHead()
+        self.roi_heads.densepose_predictor = DensePosePredictor()
+
+    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        nhwc, boxes, scores, valid = self.trunk(images)
+        B, D = valid.shape
+        roi = pooled_box_features(nhwc, boxes, 14, aligned=False, sampling_ratio=2,
+                                  compute_dtype=self.compute_dtype)
+        s, i, u, v = self.roi_heads.densepose_predictor(self.roi_heads.densepose_head(roi))
+        part, u_sel, v_sel = densepose_to_iuv(s, i, u, v)
+        out_size, scale = self._out_frame(images)
+        out_boxes = boxes * scale
+        part_map = paste_part_labels(s, i, out_boxes.reshape(B * D, 4), out_size, out_size)
+        part_map = part_map.view(B, D, out_size, out_size)
+        S = part.shape[-1]
+        out = {"boxes": out_boxes, "scores": scores, "valid": valid, "masks": part_map > 0,
+               "part_index": part.view(B, D, S, S), "u": u_sel.view(B, D, S, S),
+               "v": v_sel.view(B, D, S, S)}
+        if self.output_part_maps:
+            out["part_map"] = part_map
+        return out
 
 
 # detectron2's initial standard deviations of the prediction layers (the

@@ -4,9 +4,9 @@ path over cached proxies or images (counterpart of
 
 regressor -> rot6d -> SMPL -> reposed SMPL -> projection, in one call under
 `torch.inference_mode`.  The proxies come from cached silhouettes and
-joints, or from PNG images through the Keypoint-RCNN + PointRend detector
-front end (`detect_and_build_proxies`).  The DensePose front end is not
-ported yet.
+joints, or from PNG images through the detector front end
+(`detect_and_build_proxies`): Keypoint-RCNN joints, and PointRend or
+DensePose silhouettes.
 """
 
 import glob
@@ -36,7 +36,8 @@ from straps_tpu_torch.perception.frontend import (
 )
 from straps_tpu_torch.predict.proxy import batch_silhouettes_joints_to_proxies
 from straps_tpu_torch.render.vis import (
-    keypoints_vis, proxy_vis_batch, render_body_vis_batch, silhouette_overlay_vis,
+    densepose_overlay_vis, keypoints_vis, paste_roi_map, proxy_vis_batch,
+    render_body_vis_batch, silhouette_overlay_vis,
 )
 from straps_tpu_torch.smpl.assets import SmplAssets, load_assets
 from straps_tpu_torch.smpl.model import select_joint_sets, smpl_forward
@@ -166,21 +167,22 @@ def save_proxies(proxy_dir: str, names: Sequence[str], sils, joints) -> None:
         np.save(os.path.join(proxy_dir, f"{name}_joints2D.npy"), np.asarray(j, np.float32))
 
 
-DENSEPOSE_REFUSED = ("the DensePose front end (R101-FPN, the DensePose head and its IUV "
-                     "paste) is the next slice of the PyTorch port and is not ported yet; use "
-                     "the 'pointrend' front end or cached proxies")
+DETECTOR_FRONT_ENDS = ("pointrend", "densepose")
 
 
 def build_detector_models(cfg: PredictConfig, output_size: int, device="cuda",
-                          seed: int = 0) -> Tuple[rcnn.KeypointRCNN, rcnn.PointRendRCNN]:
-    """The keypoint and silhouette detectors on `device` in eval mode, with
-    the config's budgets and backbone dtype, boxes and masks in an
-    `output_size` frame.  Each is built on the `meta` device and given its
-    detectron2 checkpoint's tensors, or seeded random weights where its
-    checkpoint is None."""
-    if cfg.silhouettes_from != "pointrend":
-        raise NotImplementedError(f"silhouettes_from={cfg.silhouettes_from!r}: "
-                                  f"{DENSEPOSE_REFUSED}")
+                          seed: int = 0, build_vis: bool = False):
+    """The keypoint detector and the silhouette detector of
+    `cfg.silhouettes_from` (PointRend-RCNN R50-FPN or DensePose-RCNN
+    R101-FPN) on `device` in eval mode, with the config's budgets and
+    backbone dtype, boxes and masks in an `output_size` frame; DensePose
+    also returns its frame part maps when `build_vis` (the overlay's
+    input).  Each is built on the `meta` device and given its detectron2
+    checkpoint's tensors, or seeded random weights where its checkpoint is
+    None."""
+    if cfg.silhouettes_from not in DETECTOR_FRONT_ENDS:
+        raise ValueError(f"silhouettes_from must be one of {DETECTOR_FRONT_ENDS} for the "
+                         f"detector front end, got {cfg.silhouettes_from!r}")
     dev = resolve_device(device)
     kw = dict(output_size=output_size, backbone_dtype=cfg.detector_backbone_dtype,
               score_thresh=float(cfg.detector_score_thresh))
@@ -188,11 +190,15 @@ def build_detector_models(cfg: PredictConfig, output_size: int, device="cuda",
         kw["post_nms_topk"] = int(cfg.detector_post_nms_topk)
     if cfg.detector_max_detections:
         kw["max_detections"] = int(cfg.detector_max_detections)
+    if cfg.silhouettes_from == "pointrend":
+        silhouette = rcnn.PointRendRCNN, {}
+    else:
+        silhouette = rcnn.DensePoseRCNN, {"output_part_maps": build_vis}
     models = []
-    for i, (cls, ckpt) in enumerate(((rcnn.KeypointRCNN, cfg.keypoint_checkpoint),
-                                     (rcnn.PointRendRCNN, cfg.silhouette_checkpoint))):
+    for i, ((cls, extra), ckpt) in enumerate((((rcnn.KeypointRCNN, {}), cfg.keypoint_checkpoint),
+                                              (silhouette, cfg.silhouette_checkpoint))):
         with torch.device("meta"):
-            model = cls(**kw)
+            model = cls(**kw, **extra)
         if ckpt:
             models.append(load_detector_state(model, load_d2_pkl(ckpt), dev))
         else:
@@ -229,15 +235,19 @@ def detect_and_build_proxies(cfg: PredictConfig, build_vis: bool = True,
                              test_size: int = rcnn.DETECTOR_TEST_SIZE):
     """The detector front end over `cfg.input_dir` (`predict_3D.py:97-126`):
     images padded to square and resized to `size`; Keypoint-RCNN joints and
-    PointRend silhouettes at `test_size` (Pillow's bilinear resize on the
-    device), mapped back to the `size` frame; the largest centred instance
-    of each; the proxies.  The silhouettes and joints are written to
-    `<out_dir>/proxies` in `load_cached_proxies`' format.
+    PointRend or DensePose silhouettes (`cfg.silhouettes_from`) at
+    `test_size` (Pillow's bilinear resize on the device), mapped back to
+    the `size` frame; the largest centred instance of each; the proxies.
+    The silhouettes and joints are written to `<out_dir>/proxies` in
+    `load_cached_proxies`' format.
 
     Returns (names, (N, img_wh, img_wh, 18) proxies, vis): vis is None
     without `build_vis`, else the image crops the proxies' cameras live in
     (numpy, one per image) and the (N, size, size, 3) uint8 joint and
-    silhouette overlays.
+    silhouette overlays: the mask at half opacity for PointRend, the
+    selected detection's part labels in viridis for DensePose (from its
+    frame part map, or its 56x56 part index pasted into its box by nearest
+    neighbour where the detector gave no part maps).
     """
     dev = resolve_device(device)
     missing = [name for name in ("keypoint_checkpoint", "silhouette_checkpoint")
@@ -253,13 +263,15 @@ def detect_and_build_proxies(cfg: PredictConfig, build_vis: bool = True,
                       f"and all downstream SMPL predictions are meaningless.", UserWarning,
                       stacklevel=2)
     names, images = read_images(cfg.input_dir, size, dev)
-    kp_model, silh_model = build_detector_models(cfg, size, dev)
+    kp_model, silh_model = build_detector_models(cfg, size, dev, build_vis=build_vis)
     kp_out = run_detector_batched(kp_model, images, test_size)
     silh_out = run_detector_batched(silh_model, images, test_size)
-    kps, sils = [], []
+    kps, sils, selected = [], [], []
     for i in range(len(names)):
         kps.append(select_keypoints(kp_out, i, size, size))
-        sils.append(select_silhouette(silh_out, i)[0])
+        sil, sel = select_silhouette(silh_out, i)
+        sils.append(sil)
+        selected.append(sel)
     joints = [kp[:, :2] for kp in kps]
     save_proxies(os.path.join(cfg.out_dir, "proxies"), names, sils, joints)
     proxies, _ = batch_silhouettes_joints_to_proxies(
@@ -268,11 +280,34 @@ def detect_and_build_proxies(cfg: PredictConfig, build_vis: bool = True,
     if not build_vis:
         return names, proxies, None
     host = images.cpu().numpy()
+    sil_vis = silhouette_overlay_vis(images, torch.as_tensor(np.stack(sils), device=dev))
+    if cfg.silhouettes_from == "densepose":
+        sil_vis = _densepose_overlays(silh_out, selected, images, sil_vis)
     vis = {"crops": [crop_image_like_proxy(sil, img) for sil, img in zip(sils, host)],
            "joints_vis": keypoints_vis(images, torch.as_tensor(np.stack(kps), device=dev)),
-           "silhouette_vis": silhouette_overlay_vis(images,
-                                                    torch.as_tensor(np.stack(sils), device=dev))}
+           "silhouette_vis": sil_vis}
     return names, proxies, vis
+
+
+def _densepose_overlays(out: dict, selected: Sequence, images: torch.Tensor,
+                        plain: torch.Tensor) -> torch.Tensor:
+    """The DensePose overlay of each image's selected detection: its frame
+    part map (`part_map`), else its part index pasted into its box
+    (`paste_roi_map`); `plain` (the image itself under an empty mask)
+    where nothing was selected, as the JAX pipeline does."""
+    N, H, W, _ = images.shape
+    labels = []
+    for i, sel in enumerate(selected):
+        if sel is None:
+            labels.append(torch.zeros(H, W, dtype=torch.uint8))
+        elif "part_map" in out:
+            labels.append(torch.as_tensor(out["part_map"][i][sel]))
+        else:
+            labels.append(paste_roi_map(torch.as_tensor(out["part_index"][i][sel]),
+                                        out["boxes"][i][sel], H, W).to(torch.uint8))
+    overlays = densepose_overlay_vis(images, torch.stack(labels).to(images.device))
+    found = torch.as_tensor([sel is not None for sel in selected], device=images.device)
+    return torch.where(found[:, None, None, None], overlays, plain)
 
 
 def crop_image_like_proxy(sil: np.ndarray, img: np.ndarray,
@@ -312,8 +347,9 @@ def predict_3d(cfg: PredictConfig, save_vis: bool = True,
                device="cuda") -> Dict[str, np.ndarray]:
     """Predict over cached proxies (`silhouettes_from='cached'`) or over
     the PNG images of `cfg.input_dir` through the detector front end
-    (`'pointrend'`: `detect_and_build_proxies` at `cfg.detector_image_size`
-    and `cfg.detector_test_size`), and write the outputs to `cfg.out_dir`.
+    (`'pointrend'` or `'densepose'`: `detect_and_build_proxies` at
+    `cfg.detector_image_size` and `cfg.detector_test_size`), and write the
+    outputs to `cfg.out_dir`.
 
     Per image `<name>`: `<name>_verts.npy`, `_shape.npy`,
     `_pose_rotmats.npy` and `_cam_wp.npy`; with `save_vis`, the renders
@@ -326,9 +362,7 @@ def predict_3d(cfg: PredictConfig, save_vis: bool = True,
     numpy arrays, plus `names`.  The 2D vertex scatter `verts_vis/` is not
     written (it needs matplotlib).
     """
-    if cfg.silhouettes_from == "densepose":
-        raise NotImplementedError(f"silhouettes_from='densepose': {DENSEPOSE_REFUSED}")
-    if cfg.silhouettes_from not in ("cached", "pointrend"):
+    if cfg.silhouettes_from not in ("cached",) + DETECTOR_FRONT_ENDS:
         raise ValueError(f"silhouettes_from must be 'cached', 'pointrend' or 'densepose', "
                          f"got {cfg.silhouettes_from!r}")
     dev = resolve_device(device)

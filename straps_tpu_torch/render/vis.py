@@ -6,13 +6,15 @@ a per-face lit colour: `render_body_vis` draws predicted bodies, lit
 images of any size (resized as cv2's float INTER_LINEAR does), and
 `proxy_vis` the silhouette + summed heatmaps of a proxy.  The detector
 overlays: `silhouette_overlay_vis` (cv2.addWeighted of the mask at half
-opacity) and `keypoints_vis` (cv2's filled circles of radius 5).  All
-write uint8 pixels; the files are PNGs from `utils/png.py`.  Batched over
-bodies on the tensors' device: one face-id rasterisation for a whole batch.
+opacity), `keypoints_vis` (cv2's filled circles of radius 5) and
+`densepose_overlay_vis` (matplotlib's viridis of the part labels, blended
+by cv2.addWeighted 0.6/0.4).  All write uint8 pixels; the files are PNGs
+from `utils/png.py`.  Batched over bodies on the tensors' device: one
+face-id rasterisation for a whole batch.
 
 Not ported yet: the matplotlib scatters (`scatter_vis`,
-`verts_over_image_vis`), the joint-index text of `keypoints_vis`
-(cv2.putText), and the DensePose overlays.
+`verts_over_image_vis`) and the joint-index text of `keypoints_vis`
+(cv2.putText).
 """
 
 from typing import Optional, Sequence, Union
@@ -25,7 +27,7 @@ from straps_tpu_torch.geometry.camera import (
 )
 from straps_tpu_torch.render.raster import face_ids_to_parts
 from straps_tpu_torch.render.renderer import render_face_ids
-from straps_tpu_torch.utils.image import cv2_resize_linear_f32
+from straps_tpu_torch.utils.image import cv2_resize_linear_f32, cv2_resize_nearest
 from straps_tpu_torch.utils.png import write_png
 
 # Part colours (bg + 6 parts), RGB in [0,1].
@@ -50,6 +52,25 @@ LIT_ROUGHNESS = 1.0
 
 # matplotlib's 'gray' colormap as bytes: entry i of its 256-entry table.
 _GRAY_LEVELS = (np.linspace(0.0, 1.0, 256) * 255).astype(np.uint8)
+# matplotlib's 'viridis' colormap as bytes: its 256 RGB entries, as
+# `matplotlib.colormaps["viridis"](np.arange(256), bytes=True)[:, :3]`.
+_VIRIDIS = np.frombuffer(bytes.fromhex(
+    "44015444025544035745055845065a45085b46095c460b5e460c5f460e61470f62471163471265471466471567471669"
+    "47186a48196b481a6c481c6e481d6f481e70482071482172482273482374472575472676472777472878472a79472b7a"
+    "472c7b462d7c462f7c46307d46317e45327f45347f453580453681443781443982433a83433b83433c84423d84423e85"
+    "4240854141864142864043874044873f45873f47883e48883e49893d4a893d4b893d4c893c4d8a3c4e8a3b508a3b518a"
+    "3a528b3a538b39548b39558b38568b38578c37588c37598c365a8c365b8c355c8c355d8c345e8d345f8d33608d33618d"
+    "32628d32638d31648d31658d31668d30678d30688d2f698d2f6a8d2e6b8e2e6c8e2e6d8e2d6e8e2d6f8e2c708e2c718e"
+    "2c728e2b738e2b748e2a758e2a768e2a778e29788e29798e287a8e287a8e287b8e277c8e277d8e277e8e267f8e26808e"
+    "26818e25828e25838d24848d24858d24868d23878d23888d23898d22898d228a8d228b8d218c8d218d8c218e8c208f8c"
+    "20908c20918c1f928c1f938b1f948b1f958b1f968b1e978a1e988a1e998a1e998a1e9a891e9b891e9c891e9d881e9e88"
+    "1e9f881ea0871fa1871fa2861fa38620a48520a58521a68521a78422a78423a88323a98224aa8225ab8126ac8127ad80"
+    "28ae7f29af7f2ab07e2bb17d2cb17d2eb27c2fb37b30b47a32b57a33b67935b77836b87738b97639b9763bba753dbb74"
+    "3ebc7340bd7242be7144be7045bf6f47c06e49c16d4bc26c4dc26b4fc36951c46853c56755c66657c66559c7645bc862"
+    "5ec96160c96062ca5f64cb5d67cc5c69cc5b6bcd596dce5870ce5672cf5574d05477d05279d1517cd24f7ed24e81d34c"
+    "83d34b86d44988d5478bd5468dd64490d64392d74195d73f97d83e9ad83c9dd93a9fd938a2da37a5da35a7db33aadb32"
+    "addc30afdc2eb2dd2cb5dd2bb7dd29bade27bdde26bfdf24c2df22c5df21c7e01fcae01ecde01dcfe11cd2e11bd4e11a"
+    "d7e219dae218dce218dfe318e1e318e4e318e7e419e9e419ece41aeee51bf1e51cf3e51ef6e61ff8e621fae622fde724"), np.uint8).reshape(256, 3)
 _FLIP_YZ = (1.0, -1.0, -1.0)
 
 
@@ -276,3 +297,46 @@ def keypoints_vis(images: torch.Tensor, keypoints: torch.Tensor) -> torch.Tensor
     covered = hit.any(dim=1)                                                    # (B, H, W)
     color = torch.tensor(KEYPOINT_COLOR, dtype=torch.uint8, device=dev)
     return torch.where(covered[..., None], color, images)
+
+
+def apply_colormap(image: torch.Tensor, vmin=None, vmax=None) -> torch.Tensor:
+    """matplotlib's viridis of a scalar image -> uint8 (..., 4) RGBA, as
+    `plt.get_cmap("viridis")(x, bytes=True)` of the image clipped to
+    [vmin, vmax] (default: its own minimum and maximum) and scaled to
+    [0, 1] in float64: entry trunc(x * 256), 1.0 taking the last
+    (`predict/predict_densepose.py:18-45`, without its random discrete
+    colormap, which STRAPS never uses)."""
+    img = image.to(torch.float64)
+    lo = float(vmin) if vmin is not None else float(img.min())
+    hi = float(vmax) if vmax is not None else float(img.max())
+    t = (img.clamp(lo, hi) - lo) / max(hi - lo, 1e-12)
+    idx = (t * 256).to(torch.int64).clamp(max=255)
+    lut = torch.as_tensor(np.concatenate([_VIRIDIS, np.full((256, 1), 255, np.uint8)], 1),
+                          device=image.device)
+    return lut[idx]
+
+
+def densepose_overlay_vis(images: torch.Tensor, i_images: torch.Tensor) -> torch.Tensor:
+    """The DensePose part labels (0-24) in viridis, black on background,
+    blended over the images by `cv2.addWeighted(image, 0.6, vis, 0.4, 0)`
+    (`predict_densepose.py:105-115`): uint8 (..., H, W, 3) images and
+    (..., H, W) labels -> uint8, float32 arithmetic rounded half to even
+    and saturated as cv2 does."""
+    vis = apply_colormap(i_images, vmin=0, vmax=24)[..., :3]
+    vis = torch.where((i_images == 0)[..., None], 0, vis)
+    return torch.round(images.to(torch.float32) * 0.6 + vis.to(torch.float32) * 0.4
+                       + 0.0).clamp(0, 255).to(torch.uint8)
+
+
+def paste_roi_map(roi_map: torch.Tensor, box_xyxy, out_h: int, out_w: int) -> torch.Tensor:
+    """A per-ROI label map resized by nearest neighbour (cv2's
+    INTER_NEAREST) into its box, corners rounded half to even and cut at
+    the frame, in a zeroed (out_h, out_w) canvas: the I-channel paste of
+    `predict/predict_densepose.py:95-101`."""
+    x1, y1, x2, y2 = [int(round(float(c))) for c in box_xyxy]
+    x1, y1 = max(x1, 0), max(y1, 0)
+    x2, y2 = min(x2, out_w), min(y2, out_h)
+    canvas = roi_map.new_zeros(out_h, out_w)
+    if x2 > x1 and y2 > y1:
+        canvas[y1:y2, x1:x2] = cv2_resize_nearest(roi_map, x2 - x1, y2 - y1)
+    return canvas

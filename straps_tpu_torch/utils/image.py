@@ -1,7 +1,9 @@
-"""OpenCV's `cv2.resize(..., interpolation=cv2.INTER_LINEAR)` in torch, on
-any device: bit for bit for uint8 images (what the predict path does to
-every input image) and with OpenCV's float arithmetic for float images
-(the vis composite), so that the port needs no cv2.
+"""OpenCV's `cv2.resize` in torch, on any device, so that the port needs no
+cv2: INTER_LINEAR bit for bit for uint8 images (what the predict path does
+to every input image) and with OpenCV's float arithmetic for float images
+(the vis composite); INTER_NEAREST for label maps and silhouettes of any
+dtype (the DensePose overlay's ROI paste, the image-frame IoU's inverse
+crop).
 
 OpenCV computes each axis's source index and fraction in float from a
 double scale, clamps at the borders, and for uint8 rounds the weights to
@@ -98,3 +100,15 @@ def cv2_resize_linear_f32(image: torch.Tensor, out_w: int, out_h: int) -> torch.
         out = (hbuf[torch.as_tensor(y0, device=dev)] * b0
                + hbuf[torch.as_tensor(y1, device=dev)] * b1)
     return out[..., 0] if squeeze else out
+
+
+def cv2_resize_nearest(image: torch.Tensor, out_w: int, out_h: int) -> torch.Tensor:
+    """`cv2.resize(image, (out_w, out_h), interpolation=cv2.INTER_NEAREST)`
+    of an (H, W[, C]) array of any dtype, on its device: destination index
+    d reads source index min(floor(d * (1 / (dst / src))), src - 1), the
+    scale in double, as `cv::resize` computes it."""
+    h, w = image.shape[:2]
+    dev = image.device
+    cols = np.minimum(np.floor(np.arange(out_w) * (1.0 / (out_w / w))).astype(np.int64), w - 1)
+    rows = np.minimum(np.floor(np.arange(out_h) * (1.0 / (out_h / h))).astype(np.int64), h - 1)
+    return image[torch.as_tensor(rows, device=dev)][:, torch.as_tensor(cols, device=dev)]

@@ -1,5 +1,6 @@
 """Import guard of the PyTorch port: no file of `straps_tpu_torch/` (the
-detector front end in `perception/` and the image IO in `utils/` included),
+detector front end in `perception/`, DensePose included, the image IO in
+`utils/` and the dataset loaders in `eval_harness/` included),
 nor `chip_smoke.py`, imports JAX, flax, orbax, cv2, matplotlib, PIL or the
 JAX package (the machine with the card has none of them)."""
 
@@ -26,14 +27,15 @@ def _imported_modules(path):
             yield node.args[0].value
 
 
-PERCEPTION = ("__init__", "anchors", "convert_d2", "fpn", "frontend", "heads", "ops",
-              "pointrend", "rcnn", "rpn")
+PERCEPTION = ("__init__", "anchors", "convert_d2", "densepose", "fpn", "frontend", "heads",
+              "ops", "pointrend", "rcnn", "rpn")
 
 
 def test_port_files_exist():
     assert len(FILES) > 20 and all(f.exists() for f in FILES)
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
-    for module in [f"perception/{m}" for m in PERCEPTION] + ["utils/image", "utils/png"]:
+    for module in ([f"perception/{m}" for m in PERCEPTION]
+                   + ["utils/image", "utils/png", "eval_harness/datasets"]):
         assert f"straps_tpu_torch/{module}.py" in names, module
 
 

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from straps_tpu.perception import DensePoseRCNN as JDensePoseRCNN
 from straps_tpu.perception import KeypointRCNN as JKeypointRCNN
 from straps_tpu.perception import PointRendRCNN as JPointRendRCNN
 from straps_tpu.perception import anchors as JA
@@ -407,6 +408,15 @@ def assert_nms_margins(calls, margin=MARGIN):
                 assert firm[j] or pos[live[j]] > last, ("a decision at the threshold", thr)
 
 
+def argmax_near_ties(scores, margin, dim=0):
+    """Where the top two values along `dim` lie within `margin`: the
+    pixels whose argmax (DensePose's coarse segmentation and part index)
+    two stacks that differ by less than `margin / 2` may decide either
+    way.  Every other argmax must agree."""
+    top2 = torch.topk(torch.as_tensor(scores), 2, dim=dim).values
+    return (top2.select(dim, 0) - top2.select(dim, 1)) <= margin
+
+
 def _check_margins(monkeypatch, model, images):
     """Run the port's detector and show that no decision that shapes its
     outputs lies within MARGIN of its threshold: the NMS IoUs
@@ -478,13 +488,17 @@ def test_bfloat16_backbone_runs_close(kp):
 
 # ------------------------------------------------------------- weights --
 
-@pytest.mark.parametrize("kind", ["keypoint", "pointrend"])
+_KINDS = {"keypoint": (JKeypointRCNN, TR.KeypointRCNN), "pointrend": (JPointRendRCNN, TR.PointRendRCNN),
+          "densepose": (JDensePoseRCNN, TR.DensePoseRCNN)}
+
+
+@pytest.mark.parametrize("kind", ["keypoint", "pointrend", "densepose"])
 def test_flax_weights_round_trip_through_d2_pickle(tmp_path, kind):
     """flax variables -> `flax_detector_to_torch_state_dict` -> a
     detectron2 pickle -> the JAX `load_d2_pkl`: the variables come back
-    exactly; the pickle loads into the port by name, strict."""
-    jmodel = (JKeypointRCNN if kind == "keypoint" else JPointRendRCNN)(
-        post_nms_topk=TOPK, max_detections=DETS)
+    exactly; the pickle loads into the port by name, strict (DensePose:
+    the R101 trunk, the V1ConvX head and the four deconvolution branches)."""
+    jmodel = _KINDS[kind][0](post_nms_topk=TOPK, max_detections=DETS)
     shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jnp.zeros((64, 64, 3)))
     rng = np.random.RandomState(0)
     variables = jax.tree_util.tree_map(
@@ -499,7 +513,7 @@ def test_flax_weights_round_trip_through_d2_pickle(tmp_path, kind):
     for k, v in flat_want.items():
         np.testing.assert_array_equal(np.asarray(flat_got[k]), v, err_msg=str(k))
     with torch.device("meta"):
-        model = (TR.KeypointRCNN if kind == "keypoint" else TR.PointRendRCNN)()
+        model = _KINDS[kind][1]()
     load_detector_state(model, load_d2_pkl(path))
     assert not any(t.is_meta for t in model.state_dict().values())
     # Extra detectron2 entries are ignored; a missing one is named.
@@ -510,9 +524,19 @@ def test_flax_weights_round_trip_through_d2_pickle(tmp_path, kind):
     with open(path, "wb") as f:
         pickle.dump(ckpt, f)
     with torch.device("meta"):
-        model = TR.KeypointRCNN() if kind == "keypoint" else TR.PointRendRCNN()
+        model = _KINDS[kind][1]()
     with pytest.raises(KeyError, match="fpn_output3.bias"):
         load_detector_state(model, load_d2_pkl(path))
+
+
+def test_deeplab_head_scopes_are_named():
+    """A DeepLab DensePose head (ASPP, NonLocal, GroupNorm scopes) is not
+    ported: its flax scopes raise with their name instead of being
+    dropped."""
+    variables = {"params": {"densepose_head": {"aspp": {"conv1x1": {
+        "kernel": np.zeros((1, 1, 4, 4), np.float32)}}}}}
+    with pytest.raises(NotImplementedError, match="densepose_head/aspp/conv1x1"):
+        flax_detector_to_torch_state_dict(variables)
 
 
 def test_normalisation_matches_jax():

@@ -165,19 +165,32 @@ def test_cli_on_cpu(checkpoint, inputs, tmp_path, capsys):
                                   ["--keypoint-checkpoint", "kp.pkl"],
                                   ["--allow-random-detectors"]])
 def test_cli_refuses_detector_path(tmp_path, capsys, argv):
-    """The DensePose route is not ported; the detector flags serve only
-    `--silh-from pointrend` and are refused with cached proxies."""
+    """`--silh-from densepose` goes to the detector front end, which
+    refuses random detectors unless asked for and then a folder without
+    images; the detector flags are refused with cached proxies."""
+    if "densepose" in argv:
+        want = ((FileNotFoundError, "no images in") if "--allow-random-detectors" in argv
+                else (ValueError, r"detector checkpoint\(s\) not configured"))
+        with pytest.raises(want[0], match=want[1]):
+            run_predict.main(["--input", str(tmp_path), "--device", "cpu",
+                              "--out-dir", str(tmp_path / "out")] + argv)
+        return
     with pytest.raises(SystemExit):
         run_predict.main(["--input", str(tmp_path), "--device", "cpu"] + argv)
-    want = ("is the next slice of the PyTorch port" if "densepose" in argv
-            else "serve only the detector front end")
-    assert want in capsys.readouterr().err
+    assert "serve only the detector front end" in capsys.readouterr().err
 
 
 def test_predict_3d_refuses_detector_path(tmp_path):
+    """The DensePose front end runs only with detectron2 checkpoints or
+    with random detectors asked for; an unknown front end is refused."""
     cfg = PredictConfig(input_dir=str(tmp_path), silhouettes_from="densepose")
-    with pytest.raises(NotImplementedError, match="DensePose front end .* next slice"):
+    with pytest.raises(ValueError, match=r"detector checkpoint\(s\) not configured"):
         TP.predict_3d(cfg, device="cpu")
+    cfg.silhouettes_from = "openpose"
+    with pytest.raises(ValueError, match="silhouettes_from must be"):
+        TP.predict_3d(cfg, device="cpu")
+    with pytest.raises(ValueError, match="silhouettes_from must be one of"):
+        TP.build_detector_models(PredictConfig(), 64, device="cpu")
 
 
 def test_cuda_entry_points_without_card_raise(inputs, tmp_path, monkeypatch):
@@ -193,6 +206,7 @@ def test_cuda_entry_points_without_card_raise(inputs, tmp_path, monkeypatch):
         lambda: TP.predict_3d(PredictConfig(input_dir=inputs[0], out_dir=str(tmp_path))),
         lambda: run_predict.main(["--input", inputs[0], "--out-dir", str(tmp_path)]),
         lambda: TP.build_detector_models(PredictConfig(silhouettes_from="pointrend"), 64),
+        lambda: TP.build_detector_models(PredictConfig(silhouettes_from="densepose"), 64),
         lambda: TP.detect_and_build_proxies(
             PredictConfig(input_dir=inputs[0], silhouettes_from="pointrend",
                           allow_random_detectors=True, out_dir=str(tmp_path))),
