@@ -36,7 +36,7 @@ from straps_tpu_torch.perception.frontend import (
 )
 from straps_tpu_torch.predict.proxy import batch_silhouettes_joints_to_proxies
 from straps_tpu_torch.render.vis import (
-    densepose_overlay_vis, keypoints_vis, paste_roi_map, proxy_vis_batch,
+    densepose_overlay_vis, keypoints_vis, proxy_vis_batch,
     render_body_vis_batch, silhouette_overlay_vis,
 )
 from straps_tpu_torch.smpl.assets import SmplAssets, load_assets
@@ -245,9 +245,7 @@ def detect_and_build_proxies(cfg: PredictConfig, build_vis: bool = True,
     without `build_vis`, else the image crops the proxies' cameras live in
     (numpy, one per image) and the (N, size, size, 3) uint8 joint and
     silhouette overlays: the mask at half opacity for PointRend, the
-    selected detection's part labels in viridis for DensePose (from its
-    frame part map, or its 56x56 part index pasted into its box by nearest
-    neighbour where the detector gave no part maps).
+    selected detection's frame part labels in viridis for DensePose.
     """
     dev = resolve_device(device)
     missing = [name for name in ("keypoint_checkpoint", "silhouette_checkpoint")
@@ -291,20 +289,12 @@ def detect_and_build_proxies(cfg: PredictConfig, build_vis: bool = True,
 
 def _densepose_overlays(out: dict, selected: Sequence, images: torch.Tensor,
                         plain: torch.Tensor) -> torch.Tensor:
-    """The DensePose overlay of each image's selected detection: its frame
-    part map (`part_map`), else its part index pasted into its box
-    (`paste_roi_map`); `plain` (the image itself under an empty mask)
-    where nothing was selected, as the JAX pipeline does."""
+    """The DensePose overlay of each image's selected detection, from its
+    frame part map; `plain` (the image itself under an empty mask) where
+    nothing was selected, as the JAX pipeline does."""
     N, H, W, _ = images.shape
-    labels = []
-    for i, sel in enumerate(selected):
-        if sel is None:
-            labels.append(torch.zeros(H, W, dtype=torch.uint8))
-        elif "part_map" in out:
-            labels.append(torch.as_tensor(out["part_map"][i][sel]))
-        else:
-            labels.append(paste_roi_map(torch.as_tensor(out["part_index"][i][sel]),
-                                        out["boxes"][i][sel], H, W).to(torch.uint8))
+    labels = [torch.zeros(H, W, dtype=torch.uint8) if sel is None
+              else torch.as_tensor(out["part_map"][i][sel]) for i, sel in enumerate(selected)]
     overlays = densepose_overlay_vis(images, torch.stack(labels).to(images.device))
     found = torch.as_tensor([sel is not None for sel in selected], device=images.device)
     return torch.where(found[:, None, None, None], overlays, plain)

@@ -1,7 +1,6 @@
 """Proxy representation for inference (counterpart of
 `straps_tpu/predict/proxy.py`): silhouette + 17 COCO joint heatmaps,
-cropped to the padded-square silhouette bbox, as an 18-channel NHWC input;
-and the DensePose I channel read as a silhouette."""
+cropped to the padded-square silhouette bbox, as an 18-channel NHWC input."""
 
 from typing import Tuple
 
@@ -35,10 +34,3 @@ def silhouette_joints_to_proxy(silhouette: torch.Tensor, joints2d: torch.Tensor,
         silhouette[None], joints2d[None], img_wh, bbox_scale_factor,
         heatmap_mode)
     return proxy[0], j_c[0]
-
-
-def densepose_iuv_to_silhouette(i_channel: torch.Tensor) -> torch.Tensor:
-    """DensePose I channel (part labels, 0 = background) -> float32 binary
-    silhouette (`predict/predict_3D.py:114` + `utils/label_conversions.py:
-    39-46`)."""
-    return (torch.as_tensor(i_channel) != 0).to(torch.float32)

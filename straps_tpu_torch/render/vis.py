@@ -27,7 +27,7 @@ from straps_tpu_torch.geometry.camera import (
 )
 from straps_tpu_torch.render.raster import face_ids_to_parts
 from straps_tpu_torch.render.renderer import render_face_ids
-from straps_tpu_torch.utils.image import cv2_resize_linear_f32, cv2_resize_nearest
+from straps_tpu_torch.utils.image import cv2_resize_linear_f32
 from straps_tpu_torch.utils.png import write_png
 
 # Part colours (bg + 6 parts), RGB in [0,1].
@@ -299,17 +299,14 @@ def keypoints_vis(images: torch.Tensor, keypoints: torch.Tensor) -> torch.Tensor
     return torch.where(covered[..., None], color, images)
 
 
-def apply_colormap(image: torch.Tensor, vmin=None, vmax=None) -> torch.Tensor:
+def apply_colormap(image: torch.Tensor, vmin: float, vmax: float) -> torch.Tensor:
     """matplotlib's viridis of a scalar image -> uint8 (..., 4) RGBA, as
     `plt.get_cmap("viridis")(x, bytes=True)` of the image clipped to
-    [vmin, vmax] (default: its own minimum and maximum) and scaled to
-    [0, 1] in float64: entry trunc(x * 256), 1.0 taking the last
-    (`predict/predict_densepose.py:18-45`, without its random discrete
-    colormap, which STRAPS never uses)."""
-    img = image.to(torch.float64)
-    lo = float(vmin) if vmin is not None else float(img.min())
-    hi = float(vmax) if vmax is not None else float(img.max())
-    t = (img.clamp(lo, hi) - lo) / max(hi - lo, 1e-12)
+    [vmin, vmax] and scaled to [0, 1] in float64: entry trunc(x * 256), 1.0
+    taking the last (`predict/predict_densepose.py:18-45`, without its
+    random discrete colormap, which STRAPS never uses)."""
+    lo, hi = float(vmin), float(vmax)
+    t = (image.to(torch.float64).clamp(lo, hi) - lo) / max(hi - lo, 1e-12)
     idx = (t * 256).to(torch.int64).clamp(max=255)
     lut = torch.as_tensor(np.concatenate([_VIRIDIS, np.full((256, 1), 255, np.uint8)], 1),
                           device=image.device)
@@ -326,17 +323,3 @@ def densepose_overlay_vis(images: torch.Tensor, i_images: torch.Tensor) -> torch
     vis = torch.where((i_images == 0)[..., None], 0, vis)
     return torch.round(images.to(torch.float32) * 0.6 + vis.to(torch.float32) * 0.4
                        + 0.0).clamp(0, 255).to(torch.uint8)
-
-
-def paste_roi_map(roi_map: torch.Tensor, box_xyxy, out_h: int, out_w: int) -> torch.Tensor:
-    """A per-ROI label map resized by nearest neighbour (cv2's
-    INTER_NEAREST) into its box, corners rounded half to even and cut at
-    the frame, in a zeroed (out_h, out_w) canvas: the I-channel paste of
-    `predict/predict_densepose.py:95-101`."""
-    x1, y1, x2, y2 = [int(round(float(c))) for c in box_xyxy]
-    x1, y1 = max(x1, 0), max(y1, 0)
-    x2, y2 = min(x2, out_w), min(y2, out_h)
-    canvas = roi_map.new_zeros(out_h, out_w)
-    if x2 > x1 and y2 > y1:
-        canvas[y1:y2, x1:x2] = cv2_resize_nearest(roi_map, x2 - x1, y2 - y1)
-    return canvas

@@ -35,7 +35,7 @@ from straps_tpu_torch.perception import rcnn as TR
 from straps_tpu_torch.perception.convert_d2 import (
     flax_detector_to_torch_state_dict, load_detector_state,
 )
-from test_torch_perception import _check_margins, argmax_near_ties
+from torch_margins import _check_margins, argmax_near_ties
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 IMG, TOPK, DETS = 128, 64, 4

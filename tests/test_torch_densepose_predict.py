@@ -1,9 +1,9 @@
 """The DensePose route of the image front end in the PyTorch port: cv2's
-INTER_NEAREST resize, matplotlib's viridis, the DensePose overlay and ROI
-paste, and `predict_3d` from PNG images through Keypoint-RCNN R50-FPN +
+INTER_NEAREST resize, matplotlib's viridis, the DensePose overlay, and
+`predict_3d` from PNG images through Keypoint-RCNN R50-FPN +
 DensePose-RCNN R101-FPN, against cv2, matplotlib and the JAX package.
 
-The resize, the colormap, the overlay and the paste are held bit for bit.
+The resize, the colormap and the overlay are held bit for bit.
 The whole slice runs both packages on the same PNGs, detectron2 pickles
 and regressor checkpoint at a 64² frame and a 96² detector size (the JAX
 package's sizes patched in this test only), 64 proposals and 4
@@ -26,18 +26,17 @@ import torch
 import straps_tpu.perception as JPERC
 from straps_tpu.config import PredictConfig as JaxPredictConfig
 from straps_tpu.predict import pipeline as JP
-from straps_tpu.predict.proxy import densepose_iuv_to_silhouette as j_iuv_to_silhouette
 from straps_tpu.render import vis as JV
 from straps_tpu_torch.cli import run_predict
 from straps_tpu_torch.config import PredictConfig
 from straps_tpu_torch.perception import rcnn as TR
 from straps_tpu_torch.perception.convert_d2 import save_d2_pkl
 from straps_tpu_torch.predict import pipeline as TP
-from straps_tpu_torch.predict.proxy import densepose_iuv_to_silhouette
 from straps_tpu_torch.render import vis as TV
 from straps_tpu_torch.utils.image import cv2_resize_nearest
 from test_torch_detect import FRAME, IMG, NPY_KEYS, SEED, TEST_SIZE, _files, slice_inputs  # noqa: F401
-from test_torch_perception import assert_nms_margins, person_biased, record_nms
+from test_torch_perception import person_biased
+from torch_margins import assert_nms_margins, record_nms
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -57,25 +56,27 @@ def test_cv2_resize_nearest_matches_cv2(dtype):
         np.testing.assert_array_equal(got, want, err_msg=f"{hw} -> {out}")
 
 
-def test_apply_colormap_matches_matplotlib():
+@pytest.mark.parametrize("case", ["labels", "image_range", "narrow_range"])
+def test_apply_colormap_matches_matplotlib(case):
+    """The part labels clipped to [0, 24] (the overlay's use), a float
+    image between its own extremes, and a float image clipped to a range
+    inside them; the labels against the JAX function too."""
     cmap = matplotlib.colormaps["viridis"]
     x = np.random.RandomState(1).randn(40, 50) * 3
-    t = (x - x.min()) / (x.max() - x.min())
-    np.testing.assert_array_equal(TV.apply_colormap(torch.as_tensor(x)).numpy(),
-                                  cmap(t, bytes=True))
-    labels = np.arange(-2, 30).reshape(4, 8)               # clipped to [0, 24]
-    np.testing.assert_array_equal(TV.apply_colormap(torch.as_tensor(labels), 0, 24).numpy(),
-                                  JV.apply_colormap(labels, vmin=0, vmax=24))
-    np.testing.assert_array_equal(
-        TV.apply_colormap(torch.as_tensor(labels), 0, 24).numpy(),
-        cmap(np.clip(labels, 0, 24) / 24.0, bytes=True))
+    if case == "labels":
+        x, lo, hi = np.arange(-2, 30).reshape(4, 8), 0, 24
+        np.testing.assert_array_equal(TV.apply_colormap(torch.as_tensor(x), lo, hi).numpy(),
+                                      JV.apply_colormap(x, vmin=lo, vmax=hi))
+    else:
+        lo, hi = (x.min(), x.max()) if case == "image_range" else (-1.5, 2.25)
+    np.testing.assert_array_equal(TV.apply_colormap(torch.as_tensor(x), lo, hi).numpy(),
+                                  cmap((np.clip(x, lo, hi) - lo) / (hi - lo), bytes=True))
 
 
 def test_densepose_overlay_and_roi_paste_match_jax_and_cv2():
     """`densepose_overlay_vis` is `cv2.addWeighted(img, 0.6, vis, 0.4, 0)`
-    bit for bit (every pair of levels, and the JAX overlay on part
-    labels); `paste_roi_map` is the JAX nearest paste, boxes rounded half
-    to even and cut at the frame."""
+    bit for bit: every pair of levels, and the JAX overlay on part labels
+    pasted into boxes by the JAX nearest paste."""
     levels = np.arange(256, dtype=np.uint8)
     a = np.repeat(np.repeat(levels[:, None], 256, 1)[..., None], 3, -1)
     b = np.ascontiguousarray(a.transpose(1, 0, 2))
@@ -85,23 +86,12 @@ def test_densepose_overlay_and_roi_paste_match_jax_and_cv2():
     rng = np.random.RandomState(2)
     img = rng.randint(0, 256, (2, 48, 40, 3)).astype(np.uint8)
     roi = rng.randint(0, 25, (56, 56)).astype(np.uint8)
-    boxes = [[4.5, 6.0, 20.5, 22.4], [-3.0, 10.2, 45.7, 60.0], [30.0, 5.0, 30.4, 9.0],
-             [1.2, 2.7, 39.5, 47.5]]
-    for box in boxes:
-        got = TV.paste_roi_map(torch.as_tensor(roi), box, 48, 40).numpy()
-        np.testing.assert_array_equal(got, JV.paste_roi_map(roi, np.asarray(box), 48, 40))
-    labels = np.stack([JV.paste_roi_map(roi, np.asarray(box), 48, 40) for box in boxes[:2]])
+    boxes = [[4.5, 6.0, 20.5, 22.4], [-3.0, 10.2, 45.7, 60.0]]
+    labels = np.stack([JV.paste_roi_map(roi, np.asarray(box), 48, 40) for box in boxes])
     got = TV.densepose_overlay_vis(torch.as_tensor(img), torch.as_tensor(labels)).numpy()
     for k in range(2):
         np.testing.assert_array_equal(got[k], JV.densepose_overlay_vis(img[k], labels[k]))
     assert (got[0] != img[0]).any()
-
-
-def test_densepose_iuv_to_silhouette_matches_jax():
-    i_channel = np.random.RandomState(3).randint(0, 25, (2, 30, 20)).astype(np.uint8)
-    got = densepose_iuv_to_silhouette(torch.as_tensor(i_channel))
-    assert got.dtype == torch.float32
-    np.testing.assert_array_equal(got.numpy(), j_iuv_to_silhouette(i_channel))
 
 
 # -------------------------------------------------------- whole slice --
@@ -174,33 +164,6 @@ def test_predict_3d_densepose_from_images_vs_jax(slice_inputs, densepose_pkl,  #
         img = mpimg.imread(str(tmp_path / "torch" / "proxy_vis" / f"silhouette_{name}.png"))
         ref = mpimg.imread(str(tmp_path / "jax" / "proxy_vis" / f"silhouette_{name}.png"))
         assert (np.abs(img - ref[..., :3]) > 1.5 / 255).any(axis=-1).mean() < 0.01
-
-
-def test_densepose_overlay_from_part_index(slice_inputs, densepose_pkl, monkeypatch):  # noqa: F811
-    """Without frame part maps the overlay pastes the selected detection's
-    56x56 part index into its box, as the JAX pipeline's second branch."""
-    images, pkls, ckpt = slice_inputs
-    cfg = _cfg(PredictConfig, images, pkls[0], densepose_pkl, ckpt, "unused")
-    real = TP.build_detector_models
-
-    def without_part_maps(*args, **kwargs):
-        kwargs["build_vis"] = False
-        return real(*args, **kwargs)
-    monkeypatch.setattr(TP, "build_detector_models", without_part_maps)
-    silh = []
-    monkeypatch.setattr(TP, "run_detector_batched",
-                        lambda *a, _r=TP.run_detector_batched: silh.append(_r(*a)) or silh[-1])
-    monkeypatch.setattr(TP, "save_proxies", lambda *a: None)
-    names, _, vis = TP.detect_and_build_proxies(cfg, device="cpu", size=FRAME,
-                                                test_size=TEST_SIZE)
-    out = silh[1]
-    assert "part_map" not in out and "part_index" in out
-    for i in range(len(names)):
-        sel = TP.select_silhouette(out, i)[1]
-        labels = JV.paste_roi_map(out["part_index"][i][sel], out["boxes"][i][sel], FRAME, FRAME)
-        frame = TP.read_images(images, FRAME, "cpu")[1][i].numpy()
-        np.testing.assert_array_equal(vis["silhouette_vis"][i].numpy(),
-                                      JV.densepose_overlay_vis(frame, labels))
 
 
 def test_cli_runs_the_densepose_path(slice_inputs, densepose_pkl, tmp_path, capsys):  # noqa: F811

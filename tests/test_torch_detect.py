@@ -42,7 +42,8 @@ from straps_tpu_torch.predict import pipeline as TP
 from straps_tpu_torch.render import vis as TV
 from straps_tpu_torch.utils.image import cv2_resize_linear_f32, cv2_resize_linear_u8
 from straps_tpu_torch.utils.png import decode_png, write_png
-from test_torch_perception import assert_nms_margins, person_biased, record_nms
+from test_torch_perception import person_biased
+from torch_margins import assert_nms_margins, record_nms
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FRAME, TEST_SIZE, IMG = 64, 96, 64
