@@ -76,6 +76,17 @@ Phases, each of which raises on failure:
        silhouette PNGs of 64 synthetic bodies at 512x512) at 256x256,
        batch 32, with `--iou-frame image` (one packed launch per batch,
        IoU above 0.2) and `--iou-frame crop`;
+     - the training CLI at ResNet-50 with the silhouette task (its soft
+       silhouettes at 64x64) and `--profile-dir`, one epoch at the
+       released configuration otherwise: exactly 6 packed-kernel launches,
+       a finite history, the silhouette log-variance moved, the checkpoint
+       read back with `weights_only=True` holding Bottleneck keys, the
+       parameter count printed, a trace that shows the 6 packed launches;
+       the predict CLI over the 64 cached proxies with `--resnet-layers 50`
+       and that checkpoint (exactly 2 face-id launches, finite outputs);
+       one ResNet-50 train step with the silhouette task at 64x64, B=8,
+       float32 on the card and on the CPU (no IEF gate may differ; the
+       encoder's differing gates are counted);
   5. times: each kernel at B=64, 256x256 (packed: culled eval bodies;
      face-id: unculled, the predict renders' own bodies), beside its bound
      and its plain version; the evaluation's and the predict's wall time;
@@ -95,6 +106,12 @@ Phases, each of which raises on failure:
      DensePose its stages: backbone + FPN, RPN + box head, DensePose
      pooler + head + predictor, the paste), the warm image predicts under
      the profiler, and the warm release-layout eval under the profiler.
+     The ResNet-50 + silhouette train step at batch 140 (median of 12
+     after 3 warm-up steps, peak memory, three steps under the profiler)
+     and the soft silhouette's forward and backward at batch 140, 64x64.
+     The packed entry's `r50_silhouette_train_launches` and the face-id
+     entry's `r50_predict_launches` count phase 4g's launches, which both
+     entries' `launches` include.
 The whole run's wall time, then the card's name and power limit come
 before the `kernels` JSON, which is on the line before the last; the result
 JSON is last.
@@ -412,37 +429,96 @@ def synced_ms(fn, warm: int, reps: int):
     return times
 
 
-def train_step_card_vs_cpu(seed=5):
-    """One train step at 64x64, B=8, float32 encoder, from the same seeded
-    state and the same draws, on the card and on the CPU: the loss, the
-    task losses, every parameter's gradient, the BatchNorm running
-    statistics after the step and the IEF's fc1/fc2 pre-activations (the
-    ReLU gates), each side's on the CPU."""
+# The silhouette task on (phases 4g, 5): the released tasks and weights
+# plus 'silhouette' at weight 1.
+SIL_TASKS = ("verts", "shape_params", "pose_params", "joints2D", "joints3D", "silhouette")
+SIL_WEIGHTS = {"verts": 1.0, "joints2D": 0.1, "pose_params": 0.1, "shape_params": 0.1,
+               "joints3D": 1.0, "silhouette": 1.0}
+
+
+def train_step_on(device, seed=5, resnet_layers=18, silhouette=False, replay=None):
+    """One train step at 64x64, B=8, float32 encoder on `device` from the
+    seeded state and draws (the draws made on the CPU): the loss, the task
+    losses, every parameter's gradient, the BatchNorm running statistics
+    after the step and the IEF's fc1/fc2 pre-activations (the ReLU gates),
+    on the CPU, and the encoder's selections (`tests/torch_gates.py`).
+    With `replay`, the encoder takes those selections of another run."""
     from straps_tpu_torch.config import TrainConfig
     from straps_tpu_torch.train.loop import build_training
     from straps_tpu_torch.train.synthetic import draw_synthetic
+    from torch_gates import record_encoder_gates, replay_encoder_gates
 
     cfg = TrainConfig(img_wh=64, batch_size=8, focal_length=1250.0)
     cfg.model.compute_dtype = None
+    cfg.model.resnet_layers = resnet_layers
+    if silhouette:
+        cfg.losses_on, cfg.init_loss_weights = SIL_TASKS, dict(SIL_WEIGHTS)
     rng = np.random.RandomState(seed)
     pose = torch.tensor((rng.randn(8, 72) * 0.2).astype(np.float32))
     shape = torch.tensor((rng.randn(8, 10) * 0.5).astype(np.float32))
-    out = {}
-    for device in ("cuda", "cpu"):
-        _, assets, state, train_step, _ = build_training(cfg, device=device)
-        gates = []
-        for fc in (state.model.ief_module.fc1, state.model.ief_module.fc2):
-            fc.register_forward_hook(lambda m, i, o: gates.append(o.detach().cpu().flatten()))
-        draws = draw_synthetic(torch.Generator().manual_seed(seed), 8, assets.num_verts,
-                               cfg, "cpu")
-        loss, tasks, _ = train_step(state, draws_to(draws, device), pose.to(device),
-                                    shape.to(device))
-        out[device] = (
-            float(loss), {k: float(v) for k, v in tasks.items()},
+    _, assets, state, train_step, _ = build_training(cfg, device=device)
+    gates = []
+    for fc in (state.model.ief_module.fc1, state.model.ief_module.fc2):
+        fc.register_forward_hook(lambda m, i, o: gates.append(o.detach().cpu().flatten()))
+    encoder = state.model.image_encoder
+    if replay is not None:
+        replay_encoder_gates(encoder, replay)
+        enc_gates = None
+    else:
+        enc_gates = record_encoder_gates(encoder)
+    draws = draw_synthetic(torch.Generator().manual_seed(seed), 8, assets.num_verts, cfg, "cpu")
+    loss, tasks, _ = train_step(state, draws_to(draws, device), pose.to(device),
+                                shape.to(device))
+    return (float(loss), {k: float(v) for k, v in tasks.items()},
             {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()},
             {k: b.detach().cpu() for k, b in state.model.named_buffers() if "running" in k},
-            torch.cat(gates))
-    return out["cuda"], out["cpu"]
+            torch.cat(gates), enc_gates)
+
+
+def check_train_step_card_vs_cpu(label, **kw):
+    """One train step (`train_step_on`) on the card and on the CPU, held to
+    its bounds: no IEF ReLU gate differs; loss and task losses 1e-4
+    relative, BatchNorm running statistics 1e-4 of each tensor's largest;
+    gradients 2e-3 of each tensor's largest.  The encoder's selections
+    that differ are counted; where some do, the gradients are held against
+    a CPU step that replays the card's selections (and the free CPU step's
+    gradient difference is reported)."""
+    from torch_gates import count_flips
+
+    loss_k, tasks_k, grads_k, stats_k, gates_k, enc_k = train_step_on("cuda", **kw)
+    loss_c, tasks_c, grads_c, stats_c, gates_c, enc_c = train_step_on("cpu", **kw)
+    flipped = int(((gates_k > 0) != (gates_c > 0)).sum())
+    enc_flips = count_flips(enc_k, enc_c)
+    print(f"reference check, {label}: IEF ReLU gates that differ between card and CPU "
+          f"{flipped} of {gates_c.numel()} (smallest |pre-activation| "
+          f"{float(gates_c.abs().min()):.3e}, largest card-vs-CPU difference "
+          f"{float((gates_k - gates_c).abs().max()):.3e}); encoder ReLU gates and max-pool "
+          f"selections that differ {enc_flips} of {sum(g.numel() for g in enc_c)}")
+    if flipped:
+        raise AssertionError(f"{label}: an IEF ReLU gate differs between card and CPU")
+
+    def worst_grad(grads):
+        return max((float((grads_k[k] - g).abs().max() / g.abs().max()), k)
+                   for k, g in grads.items())
+    d_free, worst_free = worst_grad(grads_c)
+    if enc_flips:
+        grads_r = train_step_on("cpu", replay=enc_k, **kw)[2]
+        d_grad, worst = worst_grad(grads_r)
+        replayed = (f"; against the CPU step replaying the card's encoder selections "
+                    f"{d_grad:.3e} ({worst})")
+    else:
+        d_grad, replayed = d_free, ""
+    d_loss = max([abs(loss_k - loss_c) / abs(loss_c)]
+                 + [abs(tasks_k[t] - tasks_c[t]) / abs(tasks_c[t]) for t in tasks_c])
+    d_stats = max(float((stats_k[k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
+                  for k, v in stats_c.items())
+    print(f"reference check, {label}, card vs CPU: loss and task losses worst relative "
+          f"difference {d_loss:.3e} (bound 1e-4), BatchNorm running statistics worst "
+          f"{d_stats:.3e} of a tensor's largest (bound 1e-4), gradients worst {d_free:.3e} of "
+          f"a tensor's largest ({worst_free}){replayed} (bound 2e-3); loss {loss_c:.6f}, "
+          f"task losses " + ", ".join(f"{k} {v:.6f}" for k, v in tasks_c.items()))
+    if d_loss > 1e-4 or d_grad > 2e-3 or d_stats > 1e-4:
+        raise AssertionError(f"{label}: the train step on the card disagrees with the CPU")
 
 
 def reset_launches():
@@ -1029,8 +1105,11 @@ def main() -> int:
     from straps_tpu_torch.train.loop import build_training, pull_to_host
     from straps_tpu_torch.train.step import train_on_batch
     from straps_tpu_torch.train.synthetic import draw_synthetic, generate_synthetic_batch
+    from straps_tpu_torch.render.soft_silhouette import soft_silhouette_from_wp
     from straps_tpu_torch.utils.checkpoints import checkpoint_path, load_checkpoint
     from straps_tpu_torch.utils.device import resolve_device
+    from straps_tpu_torch.utils.model_utils import count_parameters
+    from straps_tpu_torch.utils.profiling import TRACE_FILE
     sys.path.insert(0, os.path.join(here, "tests"))
     from raster_scenes import KERNEL_SCENES
 
@@ -1257,28 +1336,7 @@ def main() -> int:
     # and the step's gradients then differ by that unit's share whatever
     # the port does.  The seed's smallest IEF pre-activation is 7e-5, and
     # the check first shows that no IEF gate differs.
-    (loss_k, tasks_k, grads_k, stats_k, gates_k), (loss_c, tasks_c, grads_c, stats_c,
-                                                   gates_c) = train_step_card_vs_cpu()
-    flipped = int(((gates_k > 0) != (gates_c > 0)).sum())
-    print(f"reference check, one train step 64x64 B=8 f32: IEF ReLU gates that differ "
-          f"between card and CPU {flipped} of {gates_c.numel()} (smallest |pre-activation| "
-          f"{float(gates_c.abs().min()):.3e}, largest card-vs-CPU difference "
-          f"{float((gates_k - gates_c).abs().max()):.3e})")
-    if flipped:
-        raise AssertionError("an IEF ReLU gate differs between card and CPU")
-    d_loss = max([abs(loss_k - loss_c) / abs(loss_c)]
-                 + [abs(tasks_k[t] - tasks_c[t]) / abs(tasks_c[t]) for t in tasks_c])
-    d_grad, worst_grad = max((float((grads_k[k] - g).abs().max() / g.abs().max()), k)
-                             for k, g in grads_c.items())
-    d_stats = max(float((stats_k[k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
-                  for k, v in stats_c.items())
-    print(f"reference check, one train step 64x64 B=8 f32, card vs CPU: loss and task "
-          f"losses worst relative difference {d_loss:.3e} (bound 1e-4), gradients worst "
-          f"{d_grad:.3e} of a tensor's largest ({worst_grad}; bound 2e-3), BatchNorm "
-          f"running statistics worst {d_stats:.3e} of a tensor's largest (bound 1e-4); "
-          f"loss {loss_c:.6f}")
-    if d_loss > 1e-4 or d_grad > 2e-3 or d_stats > 1e-4:
-        raise AssertionError("the train step on the card disagrees with the CPU")
+    check_train_step_card_vs_cpu("one train step 64x64 B=8 f32")
 
     # 4d. The image slice: the predict CLI from 16 PNG images through
     # Keypoint-RCNN + PointRend R50-FPN at full width (512 frame, 800²
@@ -1378,6 +1436,100 @@ def main() -> int:
                                  f"{n // batch}")
     if not release["image"]["silhouette_ious"] > 0.2:
         raise AssertionError(f"image-frame IoU {release['image']['silhouette_ious']} <= 0.2")
+
+    # 4g. Training at ResNet-50 with the silhouette task: the train CLI for
+    # one epoch at the released configuration otherwise (batch 140,
+    # 256x256, bfloat16 encoder: 4 train + 2 val steps) with the task's
+    # soft silhouettes at 64x64, under the profiler.
+    r50_cfg = TrainConfig(losses_on=SIL_TASKS, init_loss_weights=dict(SIL_WEIGHTS))
+    r50_cfg.model.resnet_layers = 50
+    r50_argv = ["model.resnet_layers=50", f"losses_on={SIL_TASKS!r}",
+                f"init_loss_weights={SIL_WEIGHTS!r}"]
+    r50_dir = os.path.join(tmp.name, "train_r50")
+    prof_dir = os.path.join(r50_dir, "profile")
+    os.makedirs(r50_dir)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.chdir(r50_dir), contextlib.redirect_stdout(io.StringIO()) as cli_out:
+        state, _, tracker = run_train.main(["--synthetic-data", "--device", "cuda",
+                                            "--profile-dir", prof_dir, "num_epochs=1"]
+                                           + r50_argv)
+    torch.cuda.synchronize()
+    r50_train_s = time.perf_counter() - t0
+    r50_launches = CR.packed_raster_kernel.launches
+    r50_cli_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lines = cli_out.getvalue().splitlines()
+    print("\n".join(line for line in lines
+                    if line.startswith(("regressor parameters", "epoch ", "Training completed"))))
+    n_params = count_parameters(state.model)
+    print(f"slice: train CLI at ResNet-50 with the silhouette task (64x64), 1 epoch at batch "
+          f"{B}, 256x256, bf16 encoder, under the profiler ({train_steps} train + {val_steps} "
+          f"val steps, first steps and the trace export included): {r50_train_s:.3f} s wall, "
+          f"packed kernel launches {r50_launches}, peak device memory {r50_cli_peak:.2f} GiB, "
+          f"{n_params} parameters")
+    if f"regressor parameters: {n_params} (ResNet-50 + IEF)" not in lines:
+        raise AssertionError("the train CLI did not print the regressor's parameter count")
+    if r50_launches != train_steps + val_steps:
+        raise AssertionError(f"ResNet-50 training renders: {r50_launches} packed launches, "
+                             f"want {train_steps + val_steps}")
+    history = {k: v for k, v in tracker.history.items() if v}
+    if (not history["train_silhouette_losses"]
+            or not all(np.isfinite(v).all() for v in history.values())):
+        raise AssertionError(f"ResNet-50 training history: {tracker.history}")
+    init_lv = init_loss_log_vars(SIL_TASKS, SIL_WEIGHTS)
+    sil_moved = (float(state.log_vars["silhouette"].detach())
+                 - float(init_lv["silhouette"].detach()))
+    r50_ckpt = os.path.join(r50_dir, checkpoint_path(r50_cfg.model_save_path, 0))
+    saved = load_checkpoint(r50_ckpt)             # torch.load(weights_only=True)
+    if ("image_encoder.layer1.0.conv3.weight" not in saved["state"]["model"]
+            or saved["state"]["step"] != train_steps or sil_moved == 0.0):
+        raise AssertionError(f"ResNet-50 checkpoint {r50_ckpt}: unexpected contents, or the "
+                             f"silhouette log-variance did not move ({sil_moved})")
+    trace_path = os.path.join(prof_dir, TRACE_FILE)
+    with open(trace_path) as f:
+        trace_events = json.load(f)["traceEvents"]
+    packed_names = sorted({e["name"] for e in trace_events
+                           if "span_raster_kernel" in e.get("name", "")
+                           and "PackedKeys" in e["name"]})
+    packed_in_trace = sum(1 for e in trace_events if e.get("name") in packed_names
+                          and e.get("cat") == "kernel")
+    print(f"slice: ResNet-50 checkpoint read back with weights_only=True "
+          f"({os.path.getsize(r50_ckpt)} bytes); silhouette log-variance moved by "
+          f"{sil_moved:.3e}; trace {os.path.getsize(trace_path)} bytes, {len(trace_events)} "
+          f"events, packed kernel launches in it {packed_in_trace} ({packed_names})")
+    if not packed_names or packed_in_trace != r50_launches:
+        raise AssertionError(f"the trace in {prof_dir} does not show the packed kernel's "
+                             f"{r50_launches} launches")
+    del state, tracker, saved, trace_events
+
+    # Predict over the 64 cached proxies with the ResNet-50 checkpoint.
+    r50_out = os.path.join(tmp.name, "predict_r50")
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        pred_r50 = run_predict.main(["--input", proxy_dir, "--checkpoint", r50_ckpt,
+                                     "--resnet-layers", "50", "--out-dir", r50_out,
+                                     "--device", "cuda"])
+    r50_predict_launches = CR.faceid_raster_kernel.launches
+    print(f"slice: predict of {n} cached proxies with the ResNet-50 checkpoint: face-id kernel "
+          f"launches {r50_predict_launches}")
+    if r50_predict_launches != 2:
+        raise AssertionError(f"ResNet-50 predict: {r50_predict_launches} face-id launches, "
+                             f"want 2")
+    for key in ("verts", "shape", "pose_rotmats", "cam_wp"):
+        if not np.isfinite(np.asarray(pred_r50[key])).all():
+            raise AssertionError(f"ResNet-50 predict: non-finite {key}")
+
+    # One ResNet-50 train step with the silhouette task, small and float32,
+    # on the card and on the CPU.  The seed's smallest IEF pre-activation
+    # is 8.7e-5 (the CPU's; seeds 0-11 range from 3e-7 to 8.7e-5).  Of the
+    # encoder's 6.4 million selections a few flip between the devices (10
+    # on an H100 80GB HBM3 at 700 W, moving a `bn3.bias` gradient by 21.6%
+    # of its largest): the gradients are held against the CPU step that
+    # replays the card's selections.
+    check_train_step_card_vs_cpu("one ResNet-50 train step with the silhouette task 64x64 "
+                                 "B=8 f32", seed=8, resnet_layers=50, silhouette=True)
 
     # 5. Times.
     flat, bounds, attr = smpl_kernel_inputs(assets, 256, 64, seed=5)
@@ -1488,6 +1640,43 @@ def main() -> int:
               f"{100 * busy_ms / 3 / step_med:.1f}% of the median unprofiled step")
     del state, batch_t
 
+    # The same at ResNet-50 with the silhouette task (64x64): the whole
+    # step as the loop runs it, its peak memory, three steps under the
+    # profiler; then the soft silhouette's forward and backward alone at
+    # batch 140, on the first train batch's bodies at the mean camera.
+    _, r50_assets, state, r50_step, _ = build_training(r50_cfg, device=dev)
+    pose, shape, gen = first_train_batch(r50_cfg, corpus, dev)
+
+    def r50_full_step():
+        pull_to_host(*r50_step(state, draw_synthetic(gen, B, r50_assets.num_verts, r50_cfg,
+                                                     dev), pose, shape))
+
+    torch.cuda.reset_peak_memory_stats()
+    r50_times = synced_ms(r50_full_step, warm=3, reps=12)
+    r50_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    r50_med = float(np.median(r50_times))
+    print(f"times on {card}: warm ResNet-50 + silhouette (64x64) train step at batch {B}, "
+          f"256x256, bf16 encoder: median {r50_med:.2f} ms/step over {len(r50_times)} steps "
+          f"({B / r50_med * 1e3:.1f} samples/s; min {min(r50_times):.2f}, max "
+          f"{max(r50_times):.2f} ms; peak device memory {r50_peak:.2f} GiB)")
+    r50_busy = profile_run(card, f"3 ResNet-50 + silhouette train steps at batch {B}, 256x256",
+                           3 * B, "samples", lambda: [r50_full_step() for _ in range(3)])
+    if r50_busy is not None:
+        print(f"times on {card}: device busy {r50_busy / 3:.2f} ms per profiled ResNet-50 + "
+              f"silhouette train step, {100 * r50_busy / 3 / r50_med:.1f}% of the median "
+              f"unprofiled step")
+    del state
+    verts = r50_assets.v_template[None].expand(B, -1, -1).clone().requires_grad_(True)
+    cam = torch.tensor([0.9, 0.0, 0.2], device=dev).repeat(B, 1).requires_grad_(True)
+    sil_fwd_ms = cuda_ms(lambda: soft_silhouette_from_wp(verts, cam, 64), 20)
+
+    def sil_fwd_bwd():
+        soft_silhouette_from_wp(verts, cam, 64).sum().backward()
+    sil_ms = cuda_ms(sil_fwd_bwd, 20)
+    print(f"times on {card}: soft silhouette at batch {B}, {verts.shape[1]} vertices, 64x64: "
+          f"forward {sil_fwd_ms:.3f} ms, forward + backward {sil_ms:.3f} ms")
+    del verts, cam
+
     # The packed kernel on the first train batch (the `kernels` line's
     # `train_*` numbers: the training step is its main consumer).
     train_kernel_ms = cuda_ms(
@@ -1512,22 +1701,27 @@ def main() -> int:
         "replaces": "straps_tpu/render/pallas_raster.py:106",
         "inputs": f"ms, plain_ms, bound_ms: B=64 256x256 culled eval bodies; train_*: "
                   f"B={B} 256x256 first train batch (culled, jittered cameras, vertex noise); "
-                  f"release_eval_launches: the {n}-sample SSP-3D-layout eval, image frame",
-        "launches": launches + train_launches, "max_abs_err": max_abs_err,
+                  f"release_eval_launches: the {n}-sample SSP-3D-layout eval, image frame; "
+                  f"r50_silhouette_train_launches: the ResNet-50 + silhouette train CLI",
+        "launches": launches + train_launches + r50_launches, "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "train_ms": train_kernel_ms, "train_plain_ms": train_plain_ms,
         "train_bound_ms": train_bound_ms, "train_bound_by": train_bound_by,
-        "release_eval_launches": release_launches}, {
+        "release_eval_launches": release_launches,
+        "r50_silhouette_train_launches": r50_launches}, {
         "name": "raster_faceid", "route": "cuda",
         "source": "straps_tpu_torch/csrc/raster_faceid.cu",
         "replaces": "straps_tpu/render/pallas_raster.py:50",
         "inputs": f"B={n} 256x256 unculled predict rend bodies; image_path_launches and "
                   f"densepose_path_launches: the predicts from {n_img} PNG images through "
-                  f"PointRend and DensePose (rend + reposed)",
-        "launches": faceid_launches, "max_abs_err": max(faceid_errs), "ms": faceid_ms,
+                  f"PointRend and DensePose (rend + reposed); r50_predict_launches: the "
+                  f"predict of the {n} cached proxies with the ResNet-50 checkpoint",
+        "launches": faceid_launches + r50_predict_launches, "max_abs_err": max(faceid_errs),
+        "ms": faceid_ms,
         "plain_ms": faceid_plain_ms, "bound_ms": faceid_bound_ms,
         "bound_by": faceid_bound_by, "library_ms": None,
-        "image_path_launches": image_launches, "densepose_path_launches": dp_launches}]}))
+        "image_path_launches": image_launches, "densepose_path_launches": dp_launches,
+        "r50_predict_launches": r50_predict_launches}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,6 +16,7 @@ CUDA unless `--device cpu` is given.
 import argparse
 
 from straps_tpu_torch.config import PredictConfig, apply_cli_overrides
+from straps_tpu_torch.models.resnet import DEPTH_CONFIGS
 from straps_tpu_torch.predict.pipeline import predict_3d
 
 _DETECTOR_FLAGS = ("keypoint_checkpoint", "silhouette_checkpoint", "allow_random_detectors")
@@ -27,13 +28,16 @@ def build_parser():
                         help="input dir: *.png images (--silh-from pointrend|densepose) "
                              "or cached proxies, *_silhouette.npy + *_joints2D.npy")
     parser.add_argument("--checkpoint", default=None,
-                        help="reference-format .tar; none = seeded random weights")
+                        help="reference-format .tar or a training checkpoint .pt of "
+                             "the port; none = seeded random weights")
     parser.add_argument("--silh-from", default="cached",
                         choices=["cached", "pointrend", "densepose"],
                         help="'cached' proxies, or the detector front end with PointRend "
                              "('pointrend') or DensePose ('densepose') silhouettes")
     parser.add_argument("--out-dir", default="predict_out")
-    parser.add_argument("--resnet-layers", type=int, default=18)
+    parser.add_argument("--resnet-layers", type=int, default=18,
+                        choices=sorted(DEPTH_CONFIGS),
+                        help="the regressor's encoder depth (the checkpoint's)")
     parser.add_argument("--smpl-dir", default=None)
     parser.add_argument("--keypoint-checkpoint", default=None,
                         help="detectron2 pkl of Keypoint-RCNN R50-FPN")

@@ -9,6 +9,15 @@ file and trains on them, e.g. on the CPU:
 
     python -m straps_tpu_torch.cli.run_train --synthetic-data --device cpu \
         img_wh=64 batch_size=8 focal_length=1250.0 num_epochs=1
+
+ResNet-50 with the silhouette task, and a `torch.profiler` trace of the
+run (`DIR/trace.json`):
+
+    python -m straps_tpu_torch.cli.run_train --synthetic-data --profile-dir DIR \
+        model.resnet_layers=50 "losses_on=('verts', 'shape_params', \
+        'pose_params', 'joints2D', 'joints3D', 'silhouette')" \
+        "init_loss_weights={'verts': 1.0, 'joints2D': 0.1, 'pose_params': 0.1, \
+        'shape_params': 0.1, 'joints3D': 1.0, 'silhouette': 1.0}"
 """
 
 import argparse
@@ -18,6 +27,7 @@ from straps_tpu_torch.config import TrainConfig, load_config
 from straps_tpu_torch.data.fixtures import write_synthetic_corpus
 from straps_tpu_torch.train.loop import train
 from straps_tpu_torch.utils.device import resolve_device
+from straps_tpu_torch.utils.profiling import trace
 
 
 def main(argv=None):
@@ -28,6 +38,9 @@ def main(argv=None):
                              "file and train on them (smoke runs)")
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (default; raises without a card) or 'cpu'")
+    parser.add_argument("--profile-dir", default=None,
+                        help="capture a torch.profiler trace of the run into this "
+                             "directory (trace.json, Chrome trace format)")
     parser.add_argument("overrides", nargs="*",
                         help="key=value config overrides (dotted paths)")
     args = parser.parse_args(argv)
@@ -42,7 +55,8 @@ def main(argv=None):
             os.path.join(data_dir, "synthetic_val.npz"), n=max(cfg.batch_size * 2, 32),
             seed=1)
     print(f"config: {cfg}")
-    state, best_params, tracker = train(cfg, device=device)
+    with trace(args.profile_dir):
+        state, best_params, tracker = train(cfg, device=device)
     print(f"Training completed. Best val metrics (epoch {tracker.best_epoch}):",
           tracker.best_epoch_val_metrics)
     return state, best_params, tracker

@@ -4,9 +4,8 @@ augmentation configs, YAML loading and the 'dotted.key=value' CLI overrides.
 A copy of `straps_tpu/config.py`, with the defaults of the reference's
 released training configuration.  Left out: the JAX package's
 `RenderConfig` (here the tensors' device picks the rasteriser),
-`smpl_precision` (the port's SMPL is always full float32, TF32 off),
-`data_parallel_devices` (one card) and the silhouette loss size (the
-silhouette task is not ported).
+`smpl_precision` (the port's SMPL is always full float32, TF32 off) and
+`data_parallel_devices` (one card).
 """
 
 import ast
@@ -96,6 +95,9 @@ class TrainConfig:
     proxy_augment: ProxyAugmentConfig = field(default_factory=ProxyAugmentConfig)
     # 'clean' (centred Gaussian) | 'legacy' (the reference's linspace grid).
     heatmap_mode: str = "clean"
+    # Grid side of the optional 'silhouette' task (the soft silhouette of
+    # the predicted mesh against the proxy's silhouette resized to it).
+    silhouette_loss_wh: int = 64
 
 
 @dataclass

@@ -40,7 +40,8 @@ def multi_task_loss(log_vars: Dict[str, torch.Tensor],
       log_vars: {task: scalar} learned log-variances (the active tasks).
       labels/outputs: verts (B, V, 3), joints2D (B, J, 2), joints3D
         (B, 14, 3), pose_params_rot_matrices (B, 24, 3, 3), shape_params
-        (B, 10); labels may carry 'vis' (B, J) bool.
+        (B, 10), silhouettes (B, S, S) for the 'silhouette' task; labels
+        may carry 'vis' (B, J) bool.
       img_wh: image size of the joints2D labels (pixels).
     Returns:
       (total scalar, {task: mse * exp(-logvar)}).
@@ -81,7 +82,6 @@ def multi_task_loss(log_vars: Dict[str, torch.Tensor],
                                 labels["pose_params_rot_matrices"]))
 
     if "silhouette" in log_vars:
-        raise NotImplementedError(
-            "the silhouette task is not ported to PyTorch yet (it needs the "
-            "soft silhouette renderer and an antialiased resize)")
+        add("silhouette", _mse(outputs["silhouettes"], labels["silhouettes"]))
+
     return total, loss_dict

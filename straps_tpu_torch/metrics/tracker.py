@@ -4,7 +4,10 @@
 The reference's history-dict key naming (`train_pves_pa`, `val_losses`,
 ...), per-epoch normalisation, pickle log format, resume-truncation
 semantics and the all-metrics-must-improve save gate.  The per-batch metric
-math runs on the device (`straps_tpu_torch.metrics.compute`).
+math runs on the device (`straps_tpu_torch.metrics.compute`).  A tracked
+task beyond the reference's five (the optional 'silhouette') gets its own
+`train_/val_<task>_losses` series after theirs: the JAX package's tracker
+has no series for it and raises a KeyError on its first batch.
 """
 
 import pickle
@@ -24,12 +27,14 @@ class TrainingTracker:
                  load_logs: bool = False, current_epoch: int = 0):
         self.losses_to_track = list(losses_to_track)
         self.metrics_to_track = list(metrics_to_track)
+        self.tasks = ALL_PER_TASK_LOSSES + tuple(t for t in self.losses_to_track
+                                                 if t not in ALL_PER_TASK_LOSSES)
         self.log_path = log_path
         if load_logs:
             self.history = self._load_history(log_path, current_epoch)
         else:
             self.history = {"train_losses": [], "val_losses": []}
-            for t in ALL_PER_TASK_LOSSES:
+            for t in self.tasks:
                 self.history[f"train_{t}_losses"] = []
                 self.history[f"val_{t}_losses"] = []
             for m in ALL_METRIC_TYPES:
@@ -44,7 +49,7 @@ class TrainingTracker:
         with open(path, "rb") as f:
             history = pickle.load(f)
         keys = (["train_losses", "val_losses"]
-                + [f"{s}_{t}_losses" for t in ALL_PER_TASK_LOSSES
+                + [f"{s}_{t}_losses" for t in self.tasks
                    for s in ("train", "val")]
                 + [f"{s}_{m}" for m in ALL_METRIC_TYPES for s in ("train", "val")])
         for k in keys:
@@ -57,7 +62,7 @@ class TrainingTracker:
     def initialise_loss_metric_sums(self):
         self._sums = {"train_losses": 0.0, "val_losses": 0.0,
                       "train_num_samples": 0, "val_num_samples": 0}
-        for t in ALL_PER_TASK_LOSSES:
+        for t in self.tasks:
             self._sums[f"train_{t}_losses"] = 0.0
             self._sums[f"val_{t}_losses"] = 0.0
         for m in ALL_METRIC_TYPES:
@@ -84,7 +89,7 @@ class TrainingTracker:
             n = max(self._sums[f"{split}_num_samples"], 1)
             self.history[f"{split}_losses"].append(
                 self._sums[f"{split}_losses"] / n)
-            for t in ALL_PER_TASK_LOSSES:
+            for t in self.tasks:
                 val = (self._sums[f"{split}_{t}_losses"] / n
                        if t in self.losses_to_track else 0.0)
                 self.history[f"{split}_{t}_losses"].append(val)

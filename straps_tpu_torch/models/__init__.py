@@ -1,1 +1,2 @@
-"""Regressor network: ResNet-18 encoder, IEF head, weight conversion."""
+"""Regressor network: ResNet encoders (every depth of the JAX package), IEF
+head, weight conversion."""

@@ -1,12 +1,14 @@
-"""Weights across frameworks: the JAX package's flax variables -> this
-package's state dict or training state, and reference `.tar` checkpoints.
+"""Weights across frameworks: the JAX package's flax variables and optax
+Adam state <-> this package's state dict or training state, and reference
+`.tar` checkpoints.
 
-Counterpart of `straps_tpu/models/convert.py::flax_to_torch_state_dict`
-(numpy only; it takes the flax variables as nested dicts of numpy arrays).
-Layouts: conv HWIO -> OIHW, dense (in, out) -> (out, in).
+Counterpart of `straps_tpu/models/convert.py` (numpy only: flax variables
+are nested dicts of numpy arrays).  Layouts: conv HWIO <-> OIHW (a
+grouped kernel's (kh, kw, in/groups, out) <-> (out, in/groups, kh, kw)),
+dense (in, out) <-> (out, in).
 """
 
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -63,6 +65,56 @@ def flax_to_torch_state_dict(variables: dict) -> Dict[str, np.ndarray]:
     return out
 
 
+def torch_state_dict_to_flax(state: Mapping[str, np.ndarray]) -> dict:
+    """Inverse of `flax_to_torch_state_dict`: a reference-named state dict
+    (numpy values) -> flax `{"params": ..., "batch_stats": ...}` of the JAX
+    package's `SingleInputRegressor` (scopes `encoder` / `ief`), so that
+    weights trained by this package load into the JAX model.
+    `num_batches_tracked` is dropped (flax keeps no such count)."""
+    params: dict = {}
+    batch_stats: dict = {}
+
+    def set_in(tree, path, value):
+        for p in path[:-1]:
+            tree = tree.setdefault(p, {})
+        tree[path[-1]] = value
+
+    for key, value in state.items():
+        v = np.asarray(value)
+        parts = key.split(".")
+        if parts[0] == "image_encoder":
+            rest = parts[1:]
+            if rest[0].startswith("layer"):
+                stage, block, sub = rest[0], rest[1], rest[2:]
+                scope = (f"{stage}_{block}",)
+                if sub[0] == "downsample":
+                    mod = "downsample_conv" if sub[1] == "0" else "downsample_bn"
+                    leaf = sub[2]
+                else:
+                    mod, leaf = sub[0], sub[1]
+            else:
+                scope, mod, leaf = (), rest[0], rest[1]
+            path = ("encoder",) + scope + (mod,)
+            if leaf == "weight":
+                if v.ndim == 4:
+                    set_in(params, path + ("kernel",), v.transpose(2, 3, 1, 0))
+                else:
+                    set_in(params, path + ("scale",), v)
+            elif leaf == "bias":
+                set_in(params, path + ("bias",), v)
+            elif leaf == "running_mean":
+                set_in(batch_stats, path + ("mean",), v)
+            elif leaf == "running_var":
+                set_in(batch_stats, path + ("var",), v)
+        elif parts[0] == "ief_module" and parts[1].startswith("fc"):
+            path = ("ief", parts[1])
+            if parts[2] == "weight":
+                set_in(params, path + ("kernel",), v.T)
+            elif parts[2] == "bias":
+                set_in(params, path + ("bias",), v)
+    return {"params": params, "batch_stats": batch_stats}
+
+
 def state_dict_to_tensors(state: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v)) for k, v in state.items()}
 
@@ -77,12 +129,39 @@ def load_reference_checkpoint(path: str, key: str = "best_model_state_dict"
     return {k: v for k, v in state.items() if isinstance(v, torch.Tensor)}
 
 
+def opt_state_from_optax(adam: Mapping[str, object], model, log_vars: Mapping[str, object]
+                         ) -> Dict[int, Dict[str, torch.Tensor]]:
+    """optax Adam's state over `(params, log_vars)` -> the per-parameter
+    `state` of a `torch.optim.Adam` over the model's parameters, then the
+    log-variances (`create_train_state`'s order).
+
+    `adam` holds the `ScaleByAdamState` fields as numpy: `count` (the
+    updates taken) and the moments `mu` and `nu`, each a `(flax params,
+    {task: scalar})` pair.  optax's `count` is torch's `step`: both bias
+    corrections use it after the increment, so the resumed run continues
+    the JAX run's Adam trajectory."""
+    step = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
+    moments = []
+    for name in ("mu", "nu"):
+        tree, lv = adam[name]
+        sd = flax_to_torch_state_dict({"params": tree})
+        moments.append([sd[k] for k, _ in model.named_parameters()]
+                       + [np.asarray(lv[k]) for k in log_vars])
+    return {i: {"step": step.clone(),
+                "exp_avg": torch.tensor(np.float32(m)),
+                "exp_avg_sq": torch.tensor(np.float32(v))}
+            for i, (m, v) in enumerate(zip(*moments))}
+
+
 def train_state_from_flax(params: dict, batch_stats: dict, log_vars: Dict[str, object],
-                          model, lr: float, device: Optional[torch.device] = None):
+                          model, lr: float, device: Optional[torch.device] = None,
+                          opt_state: Optional[Mapping[str, object]] = None):
     """The JAX package's training state (flax `params` and `batch_stats`,
-    the `log_vars` dict of scalars) -> this package's `TrainState`: the
+    the `log_vars` dict of scalars, optionally optax Adam's state as
+    `opt_state_from_optax` takes it) -> this package's `TrainState`: the
     weights and BatchNorm statistics loaded into `model` (strict), the
-    log-variances as float32 leaf tensors, a fresh Adam at step 0."""
+    log-variances as float32 leaf tensors, and Adam with the JAX run's
+    moments and step count (without `opt_state`, a fresh Adam at step 0)."""
     # Imported here: the rest of this module, which the predict path loads
     # weights through, stays below the training layer.
     from straps_tpu_torch.train.state import create_train_state
@@ -93,4 +172,10 @@ def train_state_from_flax(params: dict, batch_stats: dict, log_vars: Dict[str, o
     model.to(device)
     lv = {k: torch.tensor(np.float32(np.asarray(v)), device=device, requires_grad=True)
           for k, v in log_vars.items()}
-    return create_train_state(model, lv, lr)
+    state = create_train_state(model, lv, lr)
+    if opt_state is not None:
+        groups = state.optimizer.state_dict()["param_groups"]
+        state.optimizer.load_state_dict(
+            {"state": opt_state_from_optax(opt_state, model, lv), "param_groups": groups})
+        state.step = int(np.asarray(opt_state["count"]))
+    return state

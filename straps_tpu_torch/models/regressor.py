@@ -11,7 +11,7 @@ from torch import nn
 
 from straps_tpu_torch.models.ief import IEFModule, make_initial_params_estimate
 from straps_tpu_torch.models.resnet import (
-    DEPTH_CONFIGS, FEATURE_DIMS, ResNetEncoder,
+    DEPTH_CONFIGS, FEATURE_DIMS, BasicBlock, ResNetEncoder,
 )
 
 
@@ -27,13 +27,17 @@ class SingleInputRegressor(nn.Module):
                  compute_dtype: Optional[str] = None):
         super().__init__()
         if resnet_layers not in DEPTH_CONFIGS:
-            raise ValueError(f"resnet_layers={resnet_layers} is not ported "
+            raise ValueError(f"unsupported resnet_layers={resnet_layers} "
                              f"(have {sorted(DEPTH_CONFIGS)})")
         if compute_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(f"unsupported compute_dtype {compute_dtype!r}")
         self.compute_dtype = compute_dtype
-        self.image_encoder = ResNetEncoder(in_channels, DEPTH_CONFIGS[resnet_layers])
-        self.ief_module = IEFModule(FEATURE_DIMS[resnet_layers], (512, 512),
+        block, layers = DEPTH_CONFIGS[resnet_layers]
+        self.image_encoder = ResNetEncoder(in_channels, block, layers)
+        # The reference's fc widths, [512, 512] for R18 and [1024, 1024] for
+        # R50, by block family (as the JAX package).
+        fc_neurons = (512, 512) if block is BasicBlock else (1024, 1024)
+        self.ief_module = IEFModule(FEATURE_DIMS[resnet_layers], fc_neurons,
                                     initial_estimate, iterations=ief_iters)
 
     def forward(self, proxy: torch.Tensor):

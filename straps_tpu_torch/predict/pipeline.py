@@ -112,7 +112,8 @@ def load_regressor_variables(cfg: PredictConfig, assets: SmplAssets,
     checkpoint of this package (`.pt`) -> its best parameters with the
     state's BatchNorm statistics, and the heatmap mode it records.
     Returns (model in eval mode, resolved heatmap mode).  The JAX
-    package's orbax checkpoints are not read yet."""
+    package's orbax checkpoints are read after conversion to `.pt` by
+    `tools/export_jax_checkpoint.py`."""
     device = resolve_device(device)
     model = build_regressor(assets.mean_pose_6d, assets.mean_shape,
                             in_channels=cfg.model.resnet_in_channels,
@@ -132,8 +133,9 @@ def load_regressor_variables(cfg: PredictConfig, assets: SmplAssets,
     else:
         raise NotImplementedError(
             f"{cfg.checkpoint}: the PyTorch port reads reference .tar checkpoints "
-            f"and its own training checkpoints (.pt); orbax checkpoints are not "
-            f"ported yet")
+            f"and its own training checkpoints (.pt); convert an orbax checkpoint "
+            f"of the JAX package to .pt with tools/export_jax_checkpoint.py "
+            f"where JAX is installed")
     mode = resolve_heatmap_mode(cfg.heatmap_mode, trained_mode, str(cfg.checkpoint))
     return model.to(device).eval(), mode
 

@@ -29,6 +29,7 @@ from straps_tpu_torch.utils.checkpoints import (
     checkpoint_path, load_checkpoint, save_checkpoint,
 )
 from straps_tpu_torch.utils.device import resolve_device
+from straps_tpu_torch.utils.model_utils import count_parameters
 from straps_tpu_torch.utils.profiling import StepTimer
 
 
@@ -75,6 +76,9 @@ def train(cfg: TrainConfig, assets=None, max_steps_per_epoch: Optional[int] = No
     returns (final state, best parameters on the CPU, tracker)."""
     model, assets, state, train_step, val_step = build_training(cfg, assets, device)
     dev = assets.device
+    if verbose:
+        print(f"regressor parameters: {count_parameters(model)} "
+              f"(ResNet-{cfg.model.resnet_layers} + IEF)")
 
     train_ds = SyntheticTrainingDataset(cfg.train_path, cfg.params_from)
     val_ds = SyntheticTrainingDataset(cfg.val_path, cfg.params_from)

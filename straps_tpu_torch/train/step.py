@@ -1,7 +1,8 @@
 """Train and validation steps (counterpart of `straps_tpu/train/step.py`).
 
 A train step: synthetic batch (no gradients) -> regressor in train mode ->
-rot6d -> SMPL on the predictions -> multi-task loss -> backward -> one Adam
+rot6d -> SMPL on the predictions (and its soft silhouette, when the
+'silhouette' task is on) -> multi-task loss -> backward -> one Adam
 update of the parameters and the log-variances together -> per-frame
 metrics.  Each step returns its loss, task losses and per-frame metrics as
 device tensors; the caller pulls them to the host once per step, which is
@@ -11,18 +12,28 @@ the step's completion barrier.
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from straps_tpu_torch.config import TrainConfig
 from straps_tpu_torch.geometry.camera import orthographic_project
 from straps_tpu_torch.geometry.rotations import rot6d_to_rotmat
 from straps_tpu_torch.losses.multi_task import multi_task_loss
 from straps_tpu_torch.metrics.compute import compute_per_frame_metrics
+from straps_tpu_torch.render.soft_silhouette import soft_silhouette_from_wp
 from straps_tpu_torch.smpl.assets import SmplAssets
 from straps_tpu_torch.smpl.model import select_joint_sets, smpl_forward
 from straps_tpu_torch.train.state import TrainState
 from straps_tpu_torch.train.synthetic import SyntheticBatch, generate_synthetic_batch
 
 StepOutput = Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
+
+
+def silhouette_target(proxy: torch.Tensor, wh: int) -> torch.Tensor:
+    """The silhouette channel of an NHWC proxy (B, H, W, C) resized to
+    (B, wh, wh) as `jax.image.resize(method="linear")` resizes it: a
+    triangle filter, widened by the factor when it downscales."""
+    return F.interpolate(proxy[..., 0][:, None], (wh, wh), mode="bilinear", antialias=True,
+                         align_corners=False)[:, 0]
 
 
 def _forward_and_dicts(model, log_vars, batch: SyntheticBatch, assets: SmplAssets,
@@ -56,6 +67,12 @@ def _forward_and_dicts(model, log_vars, batch: SyntheticBatch, assets: SmplAsset
         "shape_params": batch.target_shape,
         "vis": batch.target_vis,
     }
+    if "silhouette" in log_vars:
+        # The optional silhouette task: the soft silhouette of the predicted
+        # mesh against the proxy's silhouette, both in the crop frame.
+        wh = cfg.silhouette_loss_wh
+        pred_dict["silhouettes"] = soft_silhouette_from_wp(pred.vertices, cam, wh)
+        target_dict["silhouettes"] = silhouette_target(batch.proxy, wh)
     loss, task_losses = multi_task_loss(log_vars, target_dict, pred_dict, cfg.img_wh)
     return loss, task_losses, pred_dict, target_dict, pred_reposed.vertices
 

@@ -1,1 +1,2 @@
-"""Device selection, numeric settings and the PNG writer."""
+"""Device selection, checkpoints, image and PNG IO, profiling and parameter
+counts."""

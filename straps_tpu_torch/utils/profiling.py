@@ -1,11 +1,16 @@
-"""Per-step wall-time accounting of the training loop (the `StepTimer` of
-`straps_tpu/utils/profiling.py`; its trace capture and compile cache are
-JAX tooling and are not ported)."""
+"""Per-step wall-time accounting of the training loop and an on-demand
+profiler trace (counterpart of `straps_tpu/utils/profiling.py`; its
+compile cache is JAX tooling and is not ported)."""
 
 import contextlib
+import os
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Iterator, Optional
+
+import torch
+
+TRACE_FILE = "trace.json"
 
 
 class StepTimer:
@@ -30,3 +35,24 @@ class StepTimer:
     def reset(self):
         self.totals.clear()
         self.counts.clear()
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]) -> Iterator[Optional[str]]:
+    """`torch.profiler` over a block (host ops, and the card's kernels and
+    copies where CUDA is available), written on exit as a Chrome trace
+    `log_dir/trace.json`, whose path the context yields; a no-op yielding
+    None when `log_dir` is None."""
+    if log_dir is None:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, TRACE_FILE)
+    with profile(activities=activities) as prof:
+        yield path
+    prof.export_chrome_trace(path)

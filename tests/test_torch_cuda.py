@@ -9,6 +9,8 @@ the depths agree exactly: on SMPL bodies at 64², 250² and 512² (two
 the scenes of `tests/raster_scenes.py` (wide
 triangles across tile edges, ragged widths, near-horizontal edges, vertices
 on pixel centres, special planes, a coplanar tie across two chunks).
+One ResNet-50 train step with the silhouette task on the card against the
+CPU (`tests/torch_gates.py` replays the card's encoder selections).
 """
 
 import numpy as np
@@ -26,6 +28,7 @@ from straps_tpu_torch.smpl.assets import load_synthetic_assets
 from straps_tpu_torch.smpl.model import smpl_forward_axis_angle
 from straps_tpu_torch.train.synthetic import draw_synthetic, generate_synthetic_batch
 from raster_scenes import KERNEL_SCENES
+from torch_gates import count_flips, record_encoder_gates, replay_encoder_gates
 from torch_margins import _check_margins
 
 pytestmark = pytest.mark.cuda
@@ -249,3 +252,60 @@ def test_densepose_forward_on_card_matches_cpu(cuda, monkeypatch):
     assert valid.any() and torch.equal(got["valid"], valid)
     assert (got["boxes"] - want["boxes"])[valid].abs().max() < 0.1
     assert (got["part_map"] == want["part_map"])[valid].float().mean() > 0.99
+
+
+def test_resnet50_silhouette_train_step_on_card_matches_cpu(cuda):
+    """One ResNet-50 train step with the silhouette task (64x64, B=8,
+    float32 encoder) on the card and on the CPU from the same seeded state
+    and draws: no IEF ReLU gate differs (the seed's smallest CPU
+    pre-activation is 8.7e-5), loss and task losses within 1e-4 relative,
+    BatchNorm running statistics within 1e-4 of each tensor's largest, and
+    gradients within 2e-3 of each tensor's largest against the CPU step
+    that replays the card's encoder selections (`torch_gates.py`: a few of
+    its 6.4 million flip between the devices)."""
+    from straps_tpu_torch.train.loop import build_training
+
+    tasks = ("verts", "shape_params", "pose_params", "joints2D", "joints3D", "silhouette")
+    weights = {"verts": 1.0, "joints2D": 0.1, "pose_params": 0.1, "shape_params": 0.1,
+               "joints3D": 1.0, "silhouette": 1.0}
+    cfg = TrainConfig(img_wh=64, batch_size=8, focal_length=1250.0, losses_on=tasks,
+                      init_loss_weights=weights)
+    cfg.model.compute_dtype = None
+    cfg.model.resnet_layers = 50
+    rng = np.random.RandomState(8)
+    pose = torch.tensor((rng.randn(8, 72) * 0.2).astype(np.float32))
+    shape = torch.tensor((rng.randn(8, 10) * 0.5).astype(np.float32))
+
+    def step(device, replay=None):
+        _, assets, state, train_step, _ = build_training(cfg, device=device)
+        gates = []
+        for fc in (state.model.ief_module.fc1, state.model.ief_module.fc2):
+            fc.register_forward_hook(lambda m, i, o: gates.append(o.detach().cpu().flatten()))
+        encoder = state.model.image_encoder
+        if replay is None:
+            enc = record_encoder_gates(encoder)
+        else:
+            enc = replay_encoder_gates(encoder, replay)
+        draws = draw_synthetic(torch.Generator().manual_seed(8), 8, assets.num_verts, cfg,
+                               "cpu")
+        draws = type(draws)(*(type(d)(*(t.to(device) for t in d)) if isinstance(d, tuple)
+                              else d.to(device) for d in draws))
+        loss, task_losses, _ = train_step(state, draws, pose.to(device), shape.to(device))
+        return (float(loss), {k: float(v) for k, v in task_losses.items()},
+                {k: p.grad.cpu() for k, p in state.model.named_parameters()},
+                {k: b.cpu() for k, b in state.model.named_buffers() if "running" in k},
+                torch.cat(gates), enc)
+
+    loss_k, tasks_k, grads_k, stats_k, gates_k, enc_k = step(cuda)
+    loss_c, tasks_c, _, stats_c, gates_c, enc_c = step(torch.device("cpu"))
+    grads_c = step(torch.device("cpu"), replay=enc_k)[2]
+    print(f"encoder selections that differ: {count_flips(enc_k, enc_c)}")
+    assert torch.equal(gates_k > 0, gates_c > 0)
+    assert tasks_c["silhouette"] > 0
+    assert abs(loss_k - loss_c) <= 1e-4 * abs(loss_c)
+    for t, v in tasks_c.items():
+        assert abs(tasks_k[t] - v) <= 1e-4 * abs(v), t
+    for k, v in stats_c.items():
+        assert (stats_k[k] - v).abs().max() <= 1e-4 * v.abs().max(), k
+    for k, g in grads_c.items():
+        assert (grads_k[k] - g).abs().max() <= 2e-3 * g.abs().max(), k

@@ -2,7 +2,9 @@
 detector front end in `perception/`, DensePose included, the image IO in
 `utils/` and the dataset loaders in `eval_harness/` included),
 nor `chip_smoke.py`, imports JAX, flax, orbax, cv2, matplotlib, PIL or the
-JAX package (the machine with the card has none of them)."""
+JAX package (the machine with the card has none of them), nor the orbax
+export tool `tools/export_jax_checkpoint.py`, which runs where JAX is
+installed and lies outside the package."""
 
 import ast
 import pathlib
@@ -11,7 +13,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "cv2", "matplotlib", "PIL",
-             "straps_tpu")
+             "straps_tpu", "tools", "export_jax_checkpoint")
 FILES = sorted((ROOT / "straps_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -35,7 +37,8 @@ def test_port_files_exist():
     assert len(FILES) > 20 and all(f.exists() for f in FILES)
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for module in ([f"perception/{m}" for m in PERCEPTION]
-                   + ["utils/image", "utils/png", "eval_harness/datasets"]):
+                   + ["utils/image", "utils/png", "eval_harness/datasets",
+                      "render/soft_silhouette", "utils/model_utils", "utils/profiling"]):
         assert f"straps_tpu_torch/{module}.py" in names, module
 
 
@@ -82,3 +85,10 @@ def test_yaml_is_imported_only_inside_functions():
         assert "yaml" not in [m.split(".")[0] for m in _module_level_imports(tree)], path
         lazy += [path.name for m in _imported_modules(path) if m == "yaml"]
     assert lazy == ["config.py"]
+
+
+def test_orbax_export_tool_lies_outside_the_port():
+    tool = ROOT / "tools" / "export_jax_checkpoint.py"
+    assert tool.exists() and tool not in FILES
+    imported = set(_imported_modules(tool))
+    assert {"straps_tpu.utils.checkpoints", "straps_tpu_torch.utils.checkpoints"} <= imported

@@ -217,12 +217,14 @@ def test_batchnorm_train_mode_matches_flax(jax_step_setup, tassets):
 def test_multi_task_loss_matches_jax():
     rng = np.random.RandomState(4)
     shapes = {"verts": (B, 30, 3), "joints2D": (B, 17, 2), "joints3D": (B, 14, 3),
-              "pose_params_rot_matrices": (B, 24, 3, 3), "shape_params": (B, 10)}
+              "pose_params_rot_matrices": (B, 24, 3, 3), "shape_params": (B, 10),
+              "silhouettes": (B, 16, 16)}
     preds = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
     labels = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
     labels["joints2D"] = rng.uniform(-5, IMG + 5, (B, 17, 2)).astype(np.float32)
     labels["vis"] = rng.rand(B, 17) > 0.3
-    cfg = TrainConfig()
+    cfg = TrainConfig(losses_on=TrainConfig().losses_on + ("silhouette",))
+    cfg.init_loss_weights["silhouette"] = 0.5
     jlv = jax_log_vars(cfg.losses_on, cfg.init_loss_weights)
     tlv = init_loss_log_vars(cfg.losses_on, cfg.init_loss_weights)
     for k in cfg.losses_on:
@@ -232,17 +234,16 @@ def test_multi_task_loss_matches_jax():
     got, got_tasks = multi_task_loss(tlv, {k: torch.as_tensor(v) for k, v in labels.items()},
                                      {k: torch.as_tensor(v) for k, v in preds.items()}, IMG)
     np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-6)
+    assert set(got_tasks) == set(cfg.losses_on)
     for k in cfg.losses_on:
         np.testing.assert_allclose(float(got_tasks[k].detach()), float(want_tasks[k]), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="silhouette"):
-        multi_task_loss({"silhouette": torch.zeros(())}, {}, {}, IMG)
 
 
 def test_train_config_matches_jax(tmp_path):
-    """Every field of the JAX package's TrainConfig but the four the port
+    """Every field of the JAX package's TrainConfig but the three the port
     leaves out has the same default; YAML then `key=value` overrides load
     as the JAX package's `load_config` loads them."""
-    left_out = {"render", "smpl_precision", "data_parallel_devices", "silhouette_loss_wh"}
+    left_out = {"render", "smpl_precision", "data_parallel_devices"}
     want = dataclasses.asdict(JaxTrainConfig())
     assert dataclasses.asdict(TrainConfig()) == {k: v for k, v in want.items()
                                                  if k not in left_out}
