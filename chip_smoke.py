@@ -87,6 +87,16 @@ Phases, each of which raises on failure:
        one ResNet-50 train step with the silhouette task at 64x64, B=8,
        float32 on the card and on the CPU (no IEF gate may differ; the
        encoder's differing gates are counted);
+     - data parallelism (`straps_tpu_torch/parallel/`), in spawned ranks:
+       a rank in an NCCL group of one runs one float32 train step at
+       64x64, B=8 through the mesh path, held against the single-process
+       step to phase 4c's bounds (no IEF gate may differ), and the
+       evaluation at 256x256, batch 32 over the mesh, equal to the plain
+       run bit for bit; two gloo ranks on cuda:0 run the same step over a
+       mesh of two, held against the NCCL step, with one packed launch a
+       rank and bitwise-identical replicas after it; `run_train
+       data_parallel_devices=<cards + 1>` exits non-zero with its message
+       before writing a file;
   5. times: each kernel at B=64, 256x256 (packed: culled eval bodies;
      face-id: unculled, the predict renders' own bodies), beside its bound
      and its plain version; the evaluation's and the predict's wall time;
@@ -111,7 +121,11 @@ Phases, each of which raises on failure:
      and the soft silhouette's forward and backward at batch 140, 64x64.
      The packed entry's `r50_silhouette_train_launches` and the face-id
      entry's `r50_predict_launches` count phase 4g's launches, which both
-     entries' `launches` include.
+     entries' `launches` include; the packed entry's `ddp_launches` count
+     phase 4h's ranks' launches, which its `launches` include.  The warm
+     released-configuration train step in an NCCL rank of one, through
+     the plain path and the mesh path in turns, with the collectives and
+     bytes of a mesh step.
 The whole run's wall time, then the card's name and power limit come
 before the `kernels` JSON, which is on the line before the last; the result
 JSON is last.
@@ -131,6 +145,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 # FP32 outside the tensor cores: 67 TFLOP/s on the data sheet (SXM) counts
 # an FMA as 2; the kernels forbid FMA, so each product and each sum is one
@@ -441,11 +457,15 @@ def train_step_on(device, seed=5, resnet_layers=18, silhouette=False, replay=Non
     seeded state and draws (the draws made on the CPU): the loss, the task
     losses, every parameter's gradient, the BatchNorm running statistics
     after the step and the IEF's fc1/fc2 pre-activations (the ReLU gates),
-    on the CPU, and the encoder's selections (`tests/torch_gates.py`).
-    With `replay`, the encoder takes those selections of another run."""
+    on the CPU, the encoder's selections (`tests/torch_gates.py`) and the
+    state's digest.  With `replay`, the encoder takes those selections of
+    another run.  In a process group (phase 4h) the step runs over the
+    data mesh: this rank's rows of the batch and draws, global loss and
+    gradients, this rank's gates."""
     from straps_tpu_torch.config import TrainConfig
+    from straps_tpu_torch.parallel import shard_batch
     from straps_tpu_torch.train.loop import build_training
-    from straps_tpu_torch.train.synthetic import draw_synthetic
+    from straps_tpu_torch.train.synthetic import draw_synthetic, shard_draws
     from torch_gates import record_encoder_gates, replay_encoder_gates
 
     cfg = TrainConfig(img_wh=64, batch_size=8, focal_length=1250.0)
@@ -467,12 +487,15 @@ def train_step_on(device, seed=5, resnet_layers=18, silhouette=False, replay=Non
     else:
         enc_gates = record_encoder_gates(encoder)
     draws = draw_synthetic(torch.Generator().manual_seed(seed), 8, assets.num_verts, cfg, "cpu")
+    if state.mesh is not None:
+        draws = shard_draws(draws, state.mesh)
+        pose, shape = shard_batch((pose, shape), state.mesh)
     loss, tasks, _ = train_step(state, draws_to(draws, device), pose.to(device),
                                 shape.to(device))
     return (float(loss), {k: float(v) for k, v in tasks.items()},
             {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()},
             {k: b.detach().cpu() for k, b in state.model.named_buffers() if "running" in k},
-            torch.cat(gates), enc_gates)
+            torch.cat(gates), enc_gates, state.digest())
 
 
 def check_train_step_card_vs_cpu(label, **kw):
@@ -485,8 +508,8 @@ def check_train_step_card_vs_cpu(label, **kw):
     gradient difference is reported)."""
     from torch_gates import count_flips
 
-    loss_k, tasks_k, grads_k, stats_k, gates_k, enc_k = train_step_on("cuda", **kw)
-    loss_c, tasks_c, grads_c, stats_c, gates_c, enc_c = train_step_on("cpu", **kw)
+    loss_k, tasks_k, grads_k, stats_k, gates_k, enc_k, _ = train_step_on("cuda", **kw)
+    loss_c, tasks_c, grads_c, stats_c, gates_c, enc_c, _ = train_step_on("cpu", **kw)
     flipped = int(((gates_k > 0) != (gates_c > 0)).sum())
     enc_flips = count_flips(enc_k, enc_c)
     print(f"reference check, {label}: IEF ReLU gates that differ between card and CPU "
@@ -519,6 +542,110 @@ def check_train_step_card_vs_cpu(label, **kw):
           f"task losses " + ", ".join(f"{k} {v:.6f}" for k, v in tasks_c.items()))
     if d_loss > 1e-4 or d_grad > 2e-3 or d_stats > 1e-4:
         raise AssertionError(f"{label}: the train step on the card disagrees with the CPU")
+
+
+def check_mesh_step(label, got, want, gates=True):
+    """A train step over a data mesh (`train_step_on`'s outputs in a group)
+    held against another to phase 4c's card-vs-CPU bounds: loss and task
+    losses 1e-5 relative, gradients 2e-3 and BatchNorm running statistics
+    1e-4 of each tensor's largest, and, with `gates`, no IEF ReLU gate
+    differing."""
+    loss_g, tasks_g, grads_g, stats_g, gates_g = got[:5]
+    loss_w, tasks_w, grads_w, stats_w, gates_w = want[:5]
+    d_loss = max([abs(loss_g - loss_w) / abs(loss_w)]
+                 + [abs(tasks_g[t] - v) / abs(v) for t, v in tasks_w.items()])
+    d_grad, worst = max((float((grads_g[k] - g).abs().max() / g.abs().max()), k)
+                        for k, g in grads_w.items())
+    d_stats = max(float((stats_g[k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
+                  for k, v in stats_w.items())
+    flipped = int(((gates_g > 0) != (gates_w > 0)).sum()) if gates else 0
+    print(f"reference check, {label}: loss and task losses worst relative difference "
+          f"{d_loss:.3e} (bound 1e-5), gradients worst {d_grad:.3e} of a tensor's largest "
+          f"({worst}; bound 2e-3), BatchNorm running statistics worst {d_stats:.3e} (bound "
+          f"1e-4)" + (f", IEF ReLU gates that differ {flipped} of {gates_w.numel()}"
+                      if gates else "") + f"; loss {loss_g:.6f}")
+    if d_loss > 1e-5 or d_grad > 2e-3 or d_stats > 1e-4 or flipped:
+        raise AssertionError(f"{label}: the mesh step disagrees")
+
+
+def ddp_nccl_checks(ckpt, eval_data, batch):
+    """Phase 4h's NCCL rank (a group of one on the card): one train step at
+    64x64, B=8, float32 through the mesh path (a), and the evaluation of
+    `eval_data` at 256x256 over the mesh (c); each with its packed-kernel
+    launches."""
+    from straps_tpu_torch.config import PredictConfig
+    from straps_tpu_torch.eval_harness.runner import run_evaluation
+    from straps_tpu_torch.parallel import make_mesh
+    from straps_tpu_torch.render import cuda_raster as CR
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+
+    reset_launches()
+    step = train_step_on("cuda")
+    step_launches = CR.packed_raster_kernel.launches
+    reset_launches()
+    final = run_evaluation(eval_data, PredictConfig(checkpoint=ckpt), batch_size=batch,
+                           device="cuda", mesh=make_mesh(0, "cuda"))
+    return step, step_launches, final, CR.packed_raster_kernel.launches
+
+
+def ddp_gloo_step():
+    """One of phase 4h's two gloo ranks on `cuda:0` (b): `train_step_on`
+    over the mesh, with this rank's packed-kernel launches."""
+    from straps_tpu_torch.render import cuda_raster as CR
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+
+    reset_launches()
+    step = train_step_on("cuda:0")
+    return step, CR.packed_raster_kernel.launches
+
+
+def ddp_step_times(corpus):
+    """Phase 5's NCCL rank (a group of one): the warm train step at the
+    released configuration on the CLI's first train batch, through the
+    plain path and through the mesh path in turns (plain, mesh, mesh,
+    plain: each the median of 12 after 3 warm-up steps, draws to the host
+    pull), the collectives and bytes of one mesh step, and three steps of
+    each path under the profiler (printed; their device busy ms
+    returned).  Both paths step one model and optimizer: the plain path
+    through a view of the state without its mesh."""
+    import dataclasses
+
+    from straps_tpu_torch.config import TrainConfig
+    from straps_tpu_torch.parallel import shard_batch
+    from straps_tpu_torch.train.loop import build_training, pull_to_host
+    from straps_tpu_torch.train.synthetic import draw_synthetic, shard_draws
+
+    cfg = TrainConfig()
+    _, assets, state, train_step, _ = build_training(cfg, device="cuda")
+    mesh, dev = state.mesh, state.mesh.device
+    plain = dataclasses.replace(state, mesh=None)
+    pose, shape, gen = first_train_batch(cfg, corpus, dev)
+
+    def step_of(on_mesh):
+        def run():
+            draws = draw_synthetic(gen, cfg.batch_size, assets.num_verts, cfg, dev)
+            if on_mesh:
+                pull_to_host(*train_step(state, shard_draws(draws, mesh),
+                                         *shard_batch((pose, shape), mesh)))
+            else:
+                pull_to_host(*train_step(plain, draws, pose, shape))
+        return run
+
+    times = {"plain": [], "mesh": []}
+    for label in ("plain", "mesh", "mesh", "plain"):
+        times[label].append(synced_ms(step_of(label == "mesh"), warm=3, reps=12))
+    run = step_of(True)
+    before = (mesh.collectives, mesh.bytes_reduced)
+    run()
+    collectives, reduced = mesh.collectives - before[0], mesh.bytes_reduced - before[1]
+    busy = {}
+    for label in ("plain", "mesh"):
+        run = step_of(label == "mesh")
+        busy[label] = profile_run(card_line(), f"3 train steps at batch {cfg.batch_size}, "
+                                  f"{cfg.img_wh}x{cfg.img_wh}, {label} path in an NCCL rank "
+                                  f"of one",
+                                  3 * cfg.batch_size, "samples", lambda: [run() for _ in range(3)])
+    return times, collectives, reduced, busy
 
 
 def reset_launches():
@@ -1087,9 +1214,8 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    here = os.path.dirname(os.path.abspath(__file__))
     import straps_tpu_torch
-    if os.path.dirname(os.path.dirname(os.path.abspath(straps_tpu_torch.__file__))) != here:
+    if os.path.dirname(os.path.dirname(os.path.abspath(straps_tpu_torch.__file__))) != HERE:
         raise RuntimeError("chip_smoke.py must run from a checkout holding straps_tpu_torch/")
     from straps_tpu_torch.cli import run_eval, run_predict, run_train
     from straps_tpu_torch.config import PredictConfig, TrainConfig
@@ -1101,6 +1227,7 @@ def main() -> int:
     from straps_tpu_torch.render import cuda_raster as CR
     from straps_tpu_torch.render import raster as R
     from straps_tpu_torch.losses.multi_task import init_loss_log_vars
+    from straps_tpu_torch.parallel import launch
     from straps_tpu_torch.smpl.assets import load_synthetic_assets
     from straps_tpu_torch.train.loop import build_training, pull_to_host
     from straps_tpu_torch.train.step import train_on_batch
@@ -1110,7 +1237,7 @@ def main() -> int:
     from straps_tpu_torch.utils.device import resolve_device
     from straps_tpu_torch.utils.model_utils import count_parameters
     from straps_tpu_torch.utils.profiling import TRACE_FILE
-    sys.path.insert(0, os.path.join(here, "tests"))
+    sys.path.insert(0, os.path.join(HERE, "tests"))
     from raster_scenes import KERNEL_SCENES
 
     dev = resolve_device("cuda")
@@ -1289,7 +1416,7 @@ def main() -> int:
     t0 = time.perf_counter()
     with contextlib.chdir(train_dir), contextlib.redirect_stdout(io.StringIO()) as cli_out:
         state, _, tracker = run_train.main(["--synthetic-data", "--device", "cuda",
-                                            "num_epochs=1"])
+                                            "num_epochs=1", "data_parallel_devices=1"])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_launches = CR.packed_raster_kernel.launches
@@ -1454,7 +1581,8 @@ def main() -> int:
     t0 = time.perf_counter()
     with contextlib.chdir(r50_dir), contextlib.redirect_stdout(io.StringIO()) as cli_out:
         state, _, tracker = run_train.main(["--synthetic-data", "--device", "cuda",
-                                            "--profile-dir", prof_dir, "num_epochs=1"]
+                                            "--profile-dir", prof_dir, "num_epochs=1",
+                                            "data_parallel_devices=1"]
                                            + r50_argv)
     torch.cuda.synchronize()
     r50_train_s = time.perf_counter() - t0
@@ -1530,6 +1658,70 @@ def main() -> int:
     # replays the card's selections.
     check_train_step_card_vs_cpu("one ResNet-50 train step with the silhouette task 64x64 "
                                  "B=8 f32", seed=8, resnet_layers=50, silhouette=True)
+
+    # 4h. Data parallelism on the card.  (a) A spawned rank in an NCCL group
+    # of one: one float32 train step at 64x64, B=8 through the mesh path,
+    # against the single-process path here from the same state and draws;
+    # (c) in the same rank, the evaluation at 256x256, batch 32, over the
+    # mesh against the plain run here, bit for bit (gathering over one rank
+    # is the identity).
+    rng = np.random.RandomState(4)
+    ddp_data = {"poses": (rng.randn(n, 72) * 0.2).astype(np.float32),
+                "shapes": (rng.randn(n, 10) * 0.5).astype(np.float32)}
+    single_step = train_step_on("cuda")
+    plain_eval = run_evaluation(ddp_data, PredictConfig(checkpoint=ckpt), batch_size=batch,
+                                device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (nccl_step, nccl_step_launches, nccl_eval, nccl_eval_launches), = launch(
+        ddp_nccl_checks, 1, "cuda", args=(ckpt, ddp_data, batch), timeout_s=600)
+    print(f"slice: NCCL group of one on the card: a train step at 64x64, B=8 and the eval of "
+          f"{n} samples at 256x256, batch {batch}, in {time.perf_counter() - t0:.3f} s wall "
+          f"(process start included); packed kernel launches {nccl_step_launches} (step) + "
+          f"{nccl_eval_launches} (eval)")
+    check_mesh_step("a train step through the NCCL mesh of one vs the single-process step, "
+                    "64x64 B=8 f32", nccl_step, single_step)
+    if nccl_step_launches != 1 or nccl_eval_launches != 2 * n // batch:
+        raise AssertionError(f"NCCL rank: {nccl_step_launches} + {nccl_eval_launches} packed "
+                             f"launches, want 1 + {2 * n // batch}")
+    eval_diff = {k: nccl_eval[k] - v for k, v in plain_eval.items() if nccl_eval[k] != v}
+    print(f"reference check, eval over the NCCL mesh of one vs the plain eval: metrics that "
+          f"differ {eval_diff} (bound: none), IoU {plain_eval['silhouette_ious']:.4f}")
+    if eval_diff or set(nccl_eval) != set(plain_eval):
+        raise AssertionError("the eval over the NCCL mesh of one differs from the plain eval")
+
+    # (b) Two gloo ranks, both on cuda:0: the same step over the mesh of two
+    # (four rows a rank) against (a)'s step; the replicas bitwise alike.
+    t0 = time.perf_counter()
+    gloo = launch(ddp_gloo_step, 2, "cuda:0", timeout_s=600)
+    gloo_launches = [r[1] for r in gloo]
+    print(f"slice: two gloo ranks on cuda:0, a train step at 64x64, B=8 (4 rows a rank): "
+          f"{time.perf_counter() - t0:.3f} s wall (process starts included), packed kernel "
+          f"launches {gloo_launches}, state digests {[r[0][6][:12] for r in gloo]}")
+    check_mesh_step("a train step over two gloo ranks vs the NCCL mesh of one, 64x64 B=8 f32 "
+                    "(each rank's IEF gates cover its rows, so they are not compared)",
+                    gloo[0][0], nccl_step, gates=False)
+    if gloo_launches != [1, 1] or gloo[0][0][6] != gloo[1][0][6]:
+        raise AssertionError("gloo ranks: a rank's packed launches are not 1, or the replicas "
+                             "differ after the step")
+    ddp_launches = nccl_step_launches + nccl_eval_launches + sum(gloo_launches)
+
+    # (d) More ranks than cards: the train CLI exits non-zero with the
+    # message, before it writes a file.
+    refuse_dir = os.path.join(tmp.name, "refuse")
+    os.makedirs(refuse_dir)
+    ranks = torch.cuda.device_count() + 1
+    refused = subprocess.run(
+        [sys.executable, "-m", "straps_tpu_torch.cli.run_train", "--synthetic-data",
+         f"data_parallel_devices={ranks}"], cwd=refuse_dir, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=HERE), timeout=300)
+    message = refused.stderr.strip().splitlines()[-1] if refused.stderr.strip() else ""
+    print(f"slice: run_train data_parallel_devices={ranks} on {torch.cuda.device_count()} "
+          f"card(s): exit code {refused.returncode}, files written {os.listdir(refuse_dir)}, "
+          f"{message!r}")
+    if (refused.returncode == 0 or os.listdir(refuse_dir)
+            or f"requested a {ranks}-device mesh but only" not in message):
+        raise AssertionError("run_train with more ranks than cards did not refuse")
 
     # 5. Times.
     flat, bounds, attr = smpl_kernel_inputs(assets, 256, 64, seed=5)
@@ -1640,6 +1832,24 @@ def main() -> int:
               f"{100 * busy_ms / 3 / step_med:.1f}% of the median unprofiled step")
     del state, batch_t
 
+    # The same step through the mesh path in an NCCL group of one, in a
+    # spawned rank, against the plain path in the same rank, in turns.
+    torch.cuda.empty_cache()
+    (ddp_times, ddp_collectives, ddp_bytes, ddp_busy), = launch(
+        ddp_step_times, 1, "cuda", args=(corpus,), timeout_s=600)
+    def blocks(label):
+        return " / ".join(f"{np.median(t):.2f} [{min(t):.2f}-{max(t):.2f}]"
+                          for t in ddp_times[label])
+
+    def per_step(busy_ms):
+        return "not measured" if busy_ms is None else f"{busy_ms / 3:.2f} ms"
+    print(f"times on {card}: warm train step at batch {B}, 256x256, bf16 encoder, in an NCCL "
+          f"rank of one, medians [min-max] of 12 after 3 warm-up steps, in turns plain, mesh, "
+          f"mesh, plain: plain {blocks('plain')} ms, through the mesh {blocks('mesh')} ms; a "
+          f"mesh step issues {ddp_collectives} collectives reducing {ddp_bytes} bytes; device "
+          f"busy per profiled step: plain {per_step(ddp_busy['plain'])}, mesh "
+          f"{per_step(ddp_busy['mesh'])}")
+
     # The same at ResNet-50 with the silhouette task (64x64): the whole
     # step as the loop runs it, its peak memory, three steps under the
     # profiler; then the soft silhouette's forward and backward alone at
@@ -1702,13 +1912,15 @@ def main() -> int:
         "inputs": f"ms, plain_ms, bound_ms: B=64 256x256 culled eval bodies; train_*: "
                   f"B={B} 256x256 first train batch (culled, jittered cameras, vertex noise); "
                   f"release_eval_launches: the {n}-sample SSP-3D-layout eval, image frame; "
-                  f"r50_silhouette_train_launches: the ResNet-50 + silhouette train CLI",
-        "launches": launches + train_launches + r50_launches, "max_abs_err": max_abs_err,
+                  f"r50_silhouette_train_launches: the ResNet-50 + silhouette train CLI; "
+                  f"ddp_launches: phase 4h's ranks (NCCL step and eval, two gloo steps)",
+        "launches": launches + train_launches + r50_launches + ddp_launches,
+        "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "train_ms": train_kernel_ms, "train_plain_ms": train_plain_ms,
         "train_bound_ms": train_bound_ms, "train_bound_by": train_bound_by,
         "release_eval_launches": release_launches,
-        "r50_silhouette_train_launches": r50_launches}, {
+        "r50_silhouette_train_launches": r50_launches, "ddp_launches": ddp_launches}, {
         "name": "raster_faceid", "route": "cuda",
         "source": "straps_tpu_torch/csrc/raster_faceid.cu",
         "replaces": "straps_tpu/render/pallas_raster.py:50",

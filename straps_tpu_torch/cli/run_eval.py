@@ -5,7 +5,9 @@
     python -m straps_tpu_torch.cli.run_eval --dataset ssp_3d --iou-frame image
 
 Runs on CUDA unless `--device cpu` is given.  Prints the final metrics as
-JSON and returns them.
+JSON and returns them.  `--data-parallel-devices N` (N > 1) evaluates over
+N ranks, one process each (`parallel.launch`: NCCL on `cuda:0..N-1`, gloo
+with `--device cpu`); the batch size must divide by N.
 """
 
 import argparse
@@ -14,6 +16,7 @@ import json
 from straps_tpu_torch.config import PredictConfig, apply_cli_overrides
 from straps_tpu_torch.eval_harness.datasets import load_eval_dataset
 from straps_tpu_torch.eval_harness.runner import DEFAULT_METRICS, run_evaluation
+from straps_tpu_torch.parallel.mesh import launch, make_mesh, requested_devices
 
 
 def build_parser():
@@ -41,6 +44,9 @@ def build_parser():
                              "inverse crop: the paper's SSP-3D mIoU protocol)")
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (default; raises without a card) or 'cpu'")
+    parser.add_argument("--data-parallel-devices", type=int, default=0,
+                        help="evaluate over this many ranks, one process each (0 or 1: "
+                             "one process); --batch-size must divide by it")
     parser.add_argument("overrides", nargs="*",
                         help="key=value PredictConfig overrides (dotted "
                              "paths), e.g. model.compute_dtype=None")
@@ -52,15 +58,32 @@ def main(argv=None):
     cfg = PredictConfig(checkpoint=args.checkpoint, img_wh=args.img_wh,
                         smpl_dir=args.smpl_dir, heatmap_mode=args.heatmap_mode)
     apply_cli_overrides(cfg, args.overrides)
+    ranks = args.data_parallel_devices
+    if ranks > 1:
+        requested_devices(ranks, args.device)
+        if args.batch_size % ranks:
+            raise ValueError(f"--batch-size {args.batch_size} does not split over {ranks} "
+                             f"ranks")
+        final = launch(evaluate, ranks, args.device, args=(args, cfg))[0]
+    else:
+        final = evaluate(args, cfg)
+    print(json.dumps(final, indent=2))
+    return final
+
+
+def evaluate(args, cfg: PredictConfig):
+    """The final metrics of `args`' evaluation; in a process group (a rank
+    of `parallel.launch`), over its data mesh."""
+    mesh = None
+    if args.data_parallel_devices > 1:
+        mesh = make_mesh(args.data_parallel_devices, args.device)
     final = run_evaluation(load_eval_dataset(args.dataset), cfg,
                            metrics=tuple(args.metrics),
                            batch_size=args.batch_size,
                            save_per_frame=args.save_per_frame is not None,
                            save_path=args.save_per_frame, device=args.device,
-                           iou_frame=args.iou_frame)
-    final = {k: float(v) for k, v in final.items()}
-    print(json.dumps(final, indent=2))
-    return final
+                           iou_frame=args.iou_frame, mesh=mesh)
+    return {k: float(v) for k, v in final.items()}
 
 
 if __name__ == "__main__":

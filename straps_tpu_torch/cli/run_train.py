@@ -18,13 +18,23 @@ run (`DIR/trace.json`):
         'pose_params', 'joints2D', 'joints3D', 'silhouette')" \
         "init_loss_weights={'verts': 1.0, 'joints2D': 0.1, 'pose_params': 0.1, \
         'shape_params': 0.1, 'joints3D': 1.0, 'silhouette': 1.0}"
+
+`data_parallel_devices=N` trains the global batch over N ranks, one
+process each (`parallel.launch`: NCCL on `cuda:0..N-1`, gloo with
+`--device cpu`); 0, the default, is every visible card (1 on the CPU).
+Rank 0 prints and writes the log, the checkpoints and the trace; `main`
+then returns each rank's state digest (`TrainState.digest`).  Asking for
+more cards than are visible raises before any file is written.
 """
 
 import argparse
 import os
 
+import torch.distributed as dist
+
 from straps_tpu_torch.config import TrainConfig, load_config
 from straps_tpu_torch.data.fixtures import write_synthetic_corpus
+from straps_tpu_torch.parallel.mesh import launch, requested_devices
 from straps_tpu_torch.train.loop import train
 from straps_tpu_torch.utils.device import resolve_device
 from straps_tpu_torch.utils.profiling import trace
@@ -47,6 +57,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)     # raises before any file is written
     cfg = load_config(TrainConfig, args.config, args.overrides)
+    ranks = requested_devices(cfg.data_parallel_devices, device)     # so does this
     if args.synthetic_data:
         data_dir = os.path.dirname(cfg.log_path) or "."
         cfg.train_path = write_synthetic_corpus(
@@ -55,11 +66,26 @@ def main(argv=None):
             os.path.join(data_dir, "synthetic_val.npz"), n=max(cfg.batch_size * 2, 32),
             seed=1)
     print(f"config: {cfg}")
-    with trace(args.profile_dir):
+    if ranks > 1:
+        return launch(train_rank, ranks, device, args=(cfg, str(device), args.profile_dir))
+    return run(cfg, device, args.profile_dir)
+
+
+def run(cfg: TrainConfig, device, profile_dir=None, lead: bool = True):
+    """Train (under the profiler with `profile_dir`) and report the best
+    validation metrics; returns (state, best parameters, tracker)."""
+    with trace(profile_dir if lead else None):
         state, best_params, tracker = train(cfg, device=device)
-    print(f"Training completed. Best val metrics (epoch {tracker.best_epoch}):",
-          tracker.best_epoch_val_metrics)
+    if lead:
+        print(f"Training completed. Best val metrics (epoch {tracker.best_epoch}):",
+              tracker.best_epoch_val_metrics)
     return state, best_params, tracker
+
+
+def train_rank(cfg: TrainConfig, device: str, profile_dir=None) -> str:
+    """One rank of a data-parallel run (`parallel.launch`); returns the
+    digest of its final state."""
+    return run(cfg, device, profile_dir, lead=dist.get_rank() == 0)[0].digest()
 
 
 if __name__ == "__main__":

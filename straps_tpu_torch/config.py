@@ -3,9 +3,8 @@ augmentation configs, YAML loading and the 'dotted.key=value' CLI overrides.
 
 A copy of `straps_tpu/config.py`, with the defaults of the reference's
 released training configuration.  Left out: the JAX package's
-`RenderConfig` (here the tensors' device picks the rasteriser),
-`smpl_precision` (the port's SMPL is always full float32, TF32 off) and
-`data_parallel_devices` (one card).
+`RenderConfig` (here the tensors' device picks the rasteriser) and
+`smpl_precision` (the port's SMPL is always full float32, TF32 off).
 """
 
 import ast
@@ -93,6 +92,9 @@ class TrainConfig:
     cam_augment: CamAugmentConfig = field(default_factory=CamAugmentConfig)
     bbox_augment: BboxAugmentConfig = field(default_factory=BboxAugmentConfig)
     proxy_augment: ProxyAugmentConfig = field(default_factory=ProxyAugmentConfig)
+    # Data-parallel ranks, one process each (0 = every visible card, 1 on
+    # the CPU); the CLI launches them when there are more than one.
+    data_parallel_devices: int = 0
     # 'clean' (centred Gaussian) | 'legacy' (the reference's linspace grid).
     heatmap_mode: str = "clean"
     # Grid side of the optional 'silhouette' task (the soft silhouette of

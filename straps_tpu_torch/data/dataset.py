@@ -52,10 +52,20 @@ class SyntheticTrainingDataset:
 
 def epoch_batches(dataset: SyntheticTrainingDataset, batch_size: int,
                   rng: np.random.RandomState, shuffle: bool = True,
-                  drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
-    """Yield shuffled {pose (B,72), shape (B,10)} batches for one epoch."""
+                  drop_last: bool = True, host_id: int = 0, num_hosts: int = 1
+                  ) -> Iterator[Dict[str, np.ndarray]]:
+    """Yield shuffled {pose (B,72), shape (B,10)} batches for one epoch.
+
+    With `num_hosts > 1` each host sees a disjoint interleaved shard of the
+    permutation, truncated to `n // num_hosts` samples so that every host
+    yields as many batches as the others (a host with one batch more would
+    enter a collective the others never match).
+    """
     n = len(dataset)
     order = rng.permutation(n) if shuffle else np.arange(n)
+    order = order[host_id::num_hosts]
+    if num_hosts > 1:
+        order = order[:n // num_hosts]
     num_full = len(order) // batch_size
     end = num_full * batch_size if drop_last else len(order)
     for start in range(0, end, batch_size):

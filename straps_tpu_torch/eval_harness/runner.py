@@ -10,7 +10,9 @@ the GT parameters with the renderer (synthetic-eval mode).
 
 On CUDA every render goes through the packed rasteriser kernel, one launch
 per batch; on the CPU through its plain version, in sub-batches sized by
-`gt_render_chunk_size`.  Back faces are culled in every render.
+`gt_render_chunk_size`.  Back faces are culled in every render.  Over a
+data mesh each rank synthesises, predicts and renders its rows of every
+batch, and the per-frame metrics are gathered.
 """
 
 from typing import Dict, Optional, Tuple
@@ -25,6 +27,7 @@ from straps_tpu_torch.geometry.camera import (
 )
 from straps_tpu_torch.metrics.compute import compute_per_frame_metrics
 from straps_tpu_torch.metrics.eval_tracker import EvalMetricsTracker
+from straps_tpu_torch.parallel.mesh import gather_batch, replicate, shard_batch
 from straps_tpu_torch.predict.pipeline import (
     load_regressor_variables, make_predict_fn,
 )
@@ -131,7 +134,7 @@ def run_evaluation(dataset: Dict[str, np.ndarray], cfg: PredictConfig,
                    save_per_frame: bool = False,
                    save_path: Optional[str] = None,
                    gender_assets: Optional[Dict] = None,
-                   device="cuda", iou_frame: str = "crop") -> Dict[str, float]:
+                   device="cuda", iou_frame: str = "crop", mesh=None) -> Dict[str, float]:
     """Evaluate a checkpoint on an eval dataset (`datasets.py`).
 
     Every sample is evaluated: the last partial batch is padded with
@@ -146,10 +149,17 @@ def run_evaluation(dataset: Dict[str, np.ndarray], cfg: PredictConfig,
         (`paste_crop_to_image_frame`), with the dataset silhouette at its
         own resolution: the SSP-3D protocol the paper's mIoU is reported
         under.
+
+    `mesh`: optional `parallel.DataMesh` (on its own device; its size
+    must divide `batch_size`): each rank synthesises, predicts and renders
+    its rows of every batch, the per-frame metrics are gathered, and every
+    rank returns the global metrics; rank 0 alone saves the per-frame ones.
     """
     if iou_frame not in ("crop", "image"):
         raise ValueError(f"iou_frame must be 'crop' or 'image', got {iou_frame!r}")
-    dev = resolve_device(device)
+    if mesh is not None and batch_size % mesh.size:
+        raise ValueError(f"batch_size {batch_size} does not split over {mesh.size} ranks")
+    dev = resolve_device(device) if mesh is None else mesh.device
     assets = load_assets(cfg.smpl_dir, device=dev)
     if gender_assets is None:
         gender_assets = {}
@@ -164,6 +174,8 @@ def run_evaluation(dataset: Dict[str, np.ndarray], cfg: PredictConfig,
     gender_assets.setdefault("n", assets)
 
     model, heatmap_mode = load_regressor_variables(cfg, assets, device=dev)
+    if mesh is not None:
+        replicate(model, mesh)
     predict = make_predict_fn(model, assets, cfg.img_wh,
                               input_dtype=cfg.proxy_input_dtype)
 
@@ -171,14 +183,28 @@ def run_evaluation(dataset: Dict[str, np.ndarray], cfg: PredictConfig,
     shapes = np.asarray(dataset["shapes"], np.float32)
     genders = np.asarray([normalise_gender(g) for g in
                           dataset.get("genders", ["n"] * len(poses))])
+    n = len(poses)
+    # Every sample is evaluated: the last batch is padded with repeats of
+    # the last sample; the padding is dropped before aggregation.
+    idx_all = np.concatenate([np.arange(n),
+                              np.full((-n) % batch_size, n - 1, np.int64)])
+    batches = [idx_all[s:s + batch_size] for s in range(0, len(idx_all), batch_size)]
+    if mesh is not None:
+        batches = [shard_batch(idx, mesh) for idx in batches]
     have_sils = "silhouettes" in dataset
     have_j2d = "joints2D" in dataset
     if have_sils and have_j2d:
         sils = np.asarray(dataset["silhouettes"], np.float32)
         j2d = np.asarray(dataset["joints2D"], np.float32)[:, :, :2]
     elif not have_sils and not have_j2d:
-        sils, j2d = synthesise_proxy_inputs(poses, shapes, assets, cfg.img_wh,
-                                            chunk=batch_size)
+        # The rows this process evaluates (over a mesh, this rank's rows),
+        # in chunks of its share of a batch.
+        rows = np.unique(np.concatenate(batches))
+        row_sils, row_j2d = synthesise_proxy_inputs(poses[rows], shapes[rows], assets,
+                                                    cfg.img_wh, chunk=len(batches[0]))
+        sils = np.zeros((n,) + row_sils.shape[1:], np.float32)
+        j2d = np.zeros((n,) + row_j2d.shape[1:], np.float32)
+        sils[rows], j2d[rows] = row_sils, row_j2d
     else:
         # Proxies need silhouette and joints in the same image frame; a
         # synthetic stand-in for the missing one would live in another.
@@ -192,16 +218,13 @@ def run_evaluation(dataset: Dict[str, np.ndarray], cfg: PredictConfig,
     # The predicted cam_t uses focal 5000 at img_wh in the crop frame.
     K = torch.as_tensor(get_intrinsics_matrix(img_wh, img_wh, 5000.0), device=dev)
     want_iou = "silhouette_ious" in metrics
+    lead = mesh is None or mesh.rank == 0
     tracker = EvalMetricsTracker(list(metrics), img_wh=img_wh,
-                                 save_path=save_path,
-                                 save_per_frame_metrics=save_per_frame)
+                                 save_path=save_path if lead else None,
+                                 save_per_frame_metrics=save_per_frame and lead)
 
-    n = len(poses)
-    idx_all = np.concatenate([np.arange(n),
-                              np.full((-n) % batch_size, n - 1, np.int64)])
-    for start in range(0, len(idx_all), batch_size):
-        idx = idx_all[start:start + batch_size]
-        valid = min(batch_size, n - start)
+    for b_i, idx in enumerate(batches):
+        valid = min(batch_size, n - b_i * batch_size)
         proxies, _ = batch_silhouettes_joints_to_proxies(
             torch.as_tensor(sils[idx], device=dev),
             torch.as_tensor(j2d[idx], device=dev), img_wh,
@@ -247,6 +270,8 @@ def run_evaluation(dataset: Dict[str, np.ndarray], cfg: PredictConfig,
         pf = compute_per_frame_metrics(tuple(metrics), pred_dict, target_dict,
                                        img_wh, pred_reposed=pred["reposed_verts"],
                                        target_reposed=gt_reposed)
+        if mesh is not None:
+            pf = gather_batch(pf, mesh)
         pf = {k: v.cpu().numpy() for k, v in pf.items()}
         tracker.update_per_batch({k: v[:valid] for k, v in pf.items()}, valid)
     return tracker.compute_final_metrics()

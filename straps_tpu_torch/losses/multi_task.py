@@ -5,6 +5,11 @@ Per-task MSE losses weighted by learned log-variances (Kendall et al.):
 `total += mse * exp(-logvar) + logvar`.  The log-variances are leaf tensors
 that the caller optimises together with the network parameters.  joints2D
 labels are normalised to [-1, 1] and masked by per-joint visibility.
+
+Over a data mesh each rank computes its share of the global batch's loss:
+every task's squared errors over the global count (joints2D's over the
+global visible count), and each log-variance term on rank 0 alone, so that
+the shares, and their gradients, sum over the ranks to the global loss's.
 """
 
 from typing import Dict, Optional, Tuple
@@ -13,6 +18,7 @@ import numpy as np
 import torch
 
 from straps_tpu_torch.geometry.joints import normalise_keypoints
+from straps_tpu_torch.parallel.mesh import all_reduce_
 
 def init_loss_log_vars(losses_on, init_loss_weights: Optional[dict] = None,
                        eps: float = 1e-6, device="cpu") -> Dict[str, torch.Tensor]:
@@ -26,15 +32,13 @@ def init_loss_log_vars(losses_on, init_loss_weights: Optional[dict] = None,
     return out
 
 
-def _mse(pred, target):
-    return torch.mean((pred - target) ** 2)
-
-
 def multi_task_loss(log_vars: Dict[str, torch.Tensor],
                     labels: Dict[str, torch.Tensor],
                     outputs: Dict[str, torch.Tensor],
-                    img_wh: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Total weighted loss and the per-task weighted losses.
+                    img_wh: int, mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Total weighted loss and the per-task weighted losses; with `mesh`
+    (a `parallel.DataMesh`, each rank passing its rows) this rank's shares
+    of them.
 
     Args:
       log_vars: {task: scalar} learned log-variances (the active tasks).
@@ -54,8 +58,13 @@ def multi_task_loss(log_vars: Dict[str, torch.Tensor],
         nonlocal total
         lv = log_vars[task]
         weighted = mse * torch.exp(-lv)
-        total = total + (weighted + lv)
+        total = total + (weighted + lv if mesh is None or mesh.rank == 0 else weighted)
         loss_dict[task] = weighted
+
+    def _mse(pred, target):
+        if mesh is None:
+            return torch.mean((pred - target) ** 2)
+        return torch.sum((pred - target) ** 2) / (pred.numel() * mesh.size)
 
     if "verts" in log_vars:
         add("verts", _mse(outputs["verts"], labels["verts"]))
@@ -65,7 +74,10 @@ def multi_task_loss(log_vars: Dict[str, torch.Tensor],
         pred = outputs["joints2D"]
         if "vis" in labels:
             vis = labels["vis"].to(pred.dtype)[..., None]          # (B, J, 1)
-            count = torch.clamp(vis.sum() * 2.0, min=1.0)
+            visible = vis.sum()
+            if mesh is not None:
+                all_reduce_([visible], mesh)
+            count = torch.clamp(visible * 2.0, min=1.0)
             mse = torch.sum(((pred - label) ** 2) * vis) / count
         else:
             mse = _mse(pred, label)

@@ -11,8 +11,12 @@ regressor encoder's (`stride_in_1x1=False`); detectron2's trunks of
 `perception/fpn.py` stride in the 1x1.
 """
 
+import contextlib
+
 import torch
 from torch import nn
+
+from straps_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -24,15 +28,30 @@ class BatchNorm2d(nn.BatchNorm2d):
     takes the unbiased one, and with flax's rounding, which the gradients
     of channels of small variance follow.  The output is
     `((x - mean) * (rsqrt(var + eps) * weight) + bias)` in float32, cast
-    back to the input's dtype.  Evaluation mode is torch's."""
+    back to the input's dtype.  Evaluation mode is torch's.
+
+    With a data mesh (`mesh`, set within `use_data_mesh`) the training-mode
+    statistics are the global batch's, as flax's over a sharded batch: one
+    differentiable all-reduce a layer of the stacked float32 [Σx, Σx²]
+    (2C values) over the global element count, so the running statistics
+    update alike on every rank."""
+
+    mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         xf = x.float()
         dims = (0, 2, 3)
-        mean = xf.mean(dim=dims)
-        var = torch.clamp(xf.square().mean(dim=dims) - mean.square(), min=0.0)
+        if self.mesh is None:
+            mean = xf.mean(dim=dims)
+            var = torch.clamp(xf.square().mean(dim=dims) - mean.square(), min=0.0)
+        else:
+            count = xf.numel() // xf.shape[1] * self.mesh.size
+            sums = all_reduce_sum(torch.stack([xf.sum(dim=dims), xf.square().sum(dim=dims)]),
+                                  self.mesh) / count
+            mean = sums[0]
+            var = torch.clamp(sums[1] - mean.square(), min=0.0)
         with torch.no_grad():
             keep = 1.0 - self.momentum
             self.running_mean.mul_(keep).add_(mean * self.momentum)
@@ -41,6 +60,21 @@ class BatchNorm2d(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def use_data_mesh(module: nn.Module, mesh):
+    """Within the block, every `BatchNorm2d` of `module` takes its
+    training-mode statistics over the global batch of the data mesh `mesh`
+    (None: this process's batch); after it, over this process's batch."""
+    norms = [] if mesh is None else [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.mesh = mesh
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.mesh = None
 
 
 def _downsample(in_planes: int, out_planes: int, stride: int) -> nn.Sequential:

@@ -29,6 +29,7 @@ from straps_tpu_torch.models.convert import load_reference_checkpoint
 from straps_tpu_torch.models.regressor import (
     SingleInputRegressor, build_regressor, init_random_weights,
 )
+from straps_tpu_torch.parallel.mesh import gather_batch, replicate, shard_batch
 from straps_tpu_torch.perception import rcnn
 from straps_tpu_torch.perception.convert_d2 import load_d2_pkl, load_detector_state
 from straps_tpu_torch.perception.frontend import (
@@ -50,19 +51,31 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def make_predict_fn(model: SingleInputRegressor, assets: SmplAssets,
-                    img_wh: int, input_dtype: Optional[str] = None
+                    img_wh: int, input_dtype: Optional[str] = None, mesh=None
                     ) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
     """proxies (B, H, W, 18) -> dict of predictions, on the model's device.
 
     `input_dtype`: optional cast of the proxy before the encoder
     ('bfloat16': binary channels stay exact, gaussian heatmap channels
     round).  None keeps float32.
+
+    `mesh`: optional `parallel.DataMesh`: the model is rank 0's
+    (`replicate`), each rank predicts its rows of the global batch it is
+    given (B divisible by the mesh size) and every rank returns the global
+    predictions (`gather_batch`).
     """
     cast = _DTYPES[input_dtype] if input_dtype is not None else None
     model.eval()
+    if mesh is not None:
+        replicate(model, mesh)
 
     @torch.inference_mode()
     def predict(proxies: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if mesh is not None:
+            return gather_batch(predict_rows(shard_batch(proxies, mesh)), mesh)
+        return predict_rows(proxies)
+
+    def predict_rows(proxies: torch.Tensor) -> Dict[str, torch.Tensor]:
         if cast is not None:
             proxies = proxies.to(cast)
         cam, pose6d, shape = model(proxies)

@@ -8,6 +8,14 @@ all-metrics-must-improve best gate, a full-state checkpoint every
 truncates the metric history.  The random draws of epoch `e` come from a
 `torch.Generator` on the device seeded with `seed * 100003 + e`, as the JAX
 loop seeds its key.
+
+With `data_parallel_devices` ranks in a process group (`parallel.launch`)
+every rank walks the same seeded permutation and draws, and steps on its
+rows of each global batch (`shard_batch`, `shard_draws`); the steps return
+global values, so every rank's decisions are alike.  Rank 0 alone prints
+and writes the log and the checkpoints, and every rank waits for each
+checkpoint; the other ranks' trackers keep this run's epochs and write
+nothing.
 """
 
 import os
@@ -21,10 +29,11 @@ from straps_tpu_torch.data.dataset import SyntheticTrainingDataset, epoch_batche
 from straps_tpu_torch.losses.multi_task import init_loss_log_vars
 from straps_tpu_torch.metrics.tracker import TrainingTracker
 from straps_tpu_torch.models.regressor import build_regressor, init_random_weights
+from straps_tpu_torch.parallel.mesh import barrier, make_mesh, shard_batch
 from straps_tpu_torch.smpl.assets import load_assets
 from straps_tpu_torch.train.state import TrainState, create_train_state
 from straps_tpu_torch.train.step import make_train_step, make_val_step
-from straps_tpu_torch.train.synthetic import draw_synthetic
+from straps_tpu_torch.train.synthetic import draw_synthetic, shard_draws
 from straps_tpu_torch.utils.checkpoints import (
     checkpoint_path, load_checkpoint, save_checkpoint,
 )
@@ -36,8 +45,13 @@ from straps_tpu_torch.utils.profiling import StepTimer
 def build_training(cfg: TrainConfig, assets=None, device="cuda"):
     """(model, assets, state, train_step, val_step) on `device` (`cuda`
     raises without a card); the regressor gets seeded random weights
-    (`init_random_weights` with `cfg.seed`)."""
+    (`init_random_weights` with `cfg.seed`).  In a process group the
+    state and steps run over the data mesh of `cfg.data_parallel_devices`
+    (`state.mesh`; `make_mesh`), on this rank's device."""
     dev = resolve_device(device)
+    mesh = make_mesh(cfg.data_parallel_devices, dev)
+    if mesh is not None:
+        dev = mesh.device
     assets = load_assets(cfg.smpl_dir, device=dev) if assets is None else assets.to(dev)
     model = build_regressor(assets.mean_pose_6d, assets.mean_shape,
                             in_channels=cfg.model.resnet_in_channels,
@@ -47,7 +61,7 @@ def build_training(cfg: TrainConfig, assets=None, device="cuda"):
     init_random_weights(model, torch.Generator().manual_seed(cfg.seed))
     model.to(dev)
     log_vars = init_loss_log_vars(cfg.losses_on, cfg.init_loss_weights, device=dev)
-    state = create_train_state(model, log_vars, cfg.lr)
+    state = create_train_state(model, log_vars, cfg.lr, mesh)
     return model, assets, state, make_train_step(assets, cfg), make_val_step(assets, cfg)
 
 
@@ -75,7 +89,9 @@ def train(cfg: TrainConfig, assets=None, max_steps_per_epoch: Optional[int] = No
     """Run the full training on `device` (`cuda` raises without a card);
     returns (final state, best parameters on the CPU, tracker)."""
     model, assets, state, train_step, val_step = build_training(cfg, assets, device)
-    dev = assets.device
+    dev, mesh = assets.device, state.mesh
+    lead = mesh is None or mesh.rank == 0
+    verbose = verbose and lead
     if verbose:
         print(f"regressor parameters: {count_parameters(model)} "
               f"(ResNet-{cfg.model.resnet_layers} + IEF)")
@@ -103,12 +119,15 @@ def train(cfg: TrainConfig, assets=None, max_steps_per_epoch: Optional[int] = No
                                   for m in cfg.save_val_metrics}
         load_logs = True
 
-    tracker = TrainingTracker(cfg.losses_on, cfg.metrics_to_track, cfg.log_path,
-                              load_logs=load_logs, current_epoch=current_epoch)
+    tracker = TrainingTracker(cfg.losses_on, cfg.metrics_to_track,
+                              cfg.log_path if lead else os.devnull,
+                              load_logs=load_logs and lead, current_epoch=current_epoch)
     rng = np.random.RandomState(cfg.seed + current_epoch)
     timer = StepTimer()
 
     def device_batch(b):
+        if mesh is not None:
+            b = shard_batch(b, mesh)
         return (torch.as_tensor(b["pose"], device=dev),
                 torch.as_tensor(b["shape"], device=dev))
 
@@ -122,7 +141,10 @@ def train(cfg: TrainConfig, assets=None, max_steps_per_epoch: Optional[int] = No
                 break
             pose, shape = device_batch(b)
             with timer.measure("train_step"):
-                draws = draw_synthetic(generator, pose.shape[0], assets.num_verts, cfg, dev)
+                draws = draw_synthetic(generator, b["pose"].shape[0], assets.num_verts, cfg,
+                                       dev)
+                if mesh is not None:
+                    draws = shard_draws(draws, mesh)
                 # The one host pull is the step's completion barrier, so it
                 # belongs inside the timed block.
                 loss, task_losses, per_frame = pull_to_host(
@@ -167,10 +189,13 @@ def train(cfg: TrainConfig, assets=None, max_steps_per_epoch: Optional[int] = No
         if epoch % cfg.epochs_per_save == 0 or epoch == cfg.num_epochs - 1:
             # Also at the final epoch, so that best weights found after the
             # last boundary are on disk.
-            save_checkpoint(checkpoint_path(cfg.model_save_path, epoch), state,
-                            epoch=epoch, best_epoch=best_epoch, best_params=best_params,
-                            best_epoch_val_metrics=best_epoch_val_metrics,
-                            heatmap_mode=cfg.heatmap_mode)
+            if lead:
+                save_checkpoint(checkpoint_path(cfg.model_save_path, epoch), state,
+                                epoch=epoch, best_epoch=best_epoch, best_params=best_params,
+                                best_epoch_val_metrics=best_epoch_val_metrics,
+                                heatmap_mode=cfg.heatmap_mode)
+            if mesh is not None:
+                barrier(mesh)
 
     tracker.best_epoch = best_epoch
     tracker.best_epoch_val_metrics = {k: float(v) for k, v in best_epoch_val_metrics.items()}

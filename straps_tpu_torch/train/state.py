@@ -3,15 +3,18 @@
 Everything the reference checkpoints: the regressor (parameters and
 BatchNorm statistics), the learned loss log-variances, one Adam over both
 together (torch defaults: betas 0.9/0.999, eps 1e-8 outside the square
-root, as `optax.adam`), and the step count.
+root, as `optax.adam`), and the step count.  Over a data mesh the state is
+a replica: every rank holds the same values, rank 0's at creation.
 """
 
+import hashlib
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from straps_tpu_torch.models.regressor import SingleInputRegressor
+from straps_tpu_torch.parallel.mesh import DataMesh, replicate
 
 
 @dataclass
@@ -20,6 +23,7 @@ class TrainState:
     log_vars: Dict[str, torch.Tensor]     # {task: scalar leaf tensor}
     optimizer: torch.optim.Adam
     step: int = 0
+    mesh: Optional[DataMesh] = None       # the data mesh the state is replicated over
 
     def state_dict(self) -> dict:
         """Tensors and plain containers only (`torch.load(weights_only=True)`
@@ -30,18 +34,37 @@ class TrainState:
                 "step": self.step}
 
     def load_state_dict(self, state: dict) -> None:
+        """Restore a `state_dict`; the learning rate stays this state's (the
+        configured one), as the JAX loop's resume keeps `cfg.lr`."""
         self.model.load_state_dict(state["model"], strict=True)
         with torch.no_grad():
             for k, v in self.log_vars.items():
                 v.copy_(state["log_vars"][k])
+        lrs = [g["lr"] for g in self.optimizer.param_groups]
         self.optimizer.load_state_dict(state["optimizer"])
+        for g, lr in zip(self.optimizer.param_groups, lrs):
+            g["lr"] = lr
         self.step = int(state["step"])
+
+    def digest(self) -> str:
+        """SHA-256 of every parameter, buffer and log-variance, in order:
+        equal digests are bitwise-equal replicas."""
+        h = hashlib.sha256()
+        for t in (list(self.model.state_dict().values())
+                  + [v.detach() for v in self.log_vars.values()]):
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        return h.hexdigest()
 
 
 def create_train_state(model: SingleInputRegressor, log_vars: Dict[str, torch.Tensor],
-                       lr: float) -> TrainState:
+                       lr: float, mesh: Optional[DataMesh] = None) -> TrainState:
     """A fresh state: the model and log-variances as given, Adam at step 0
-    over the model's parameters, then the log-variances."""
+    over the model's parameters, then the log-variances.  With `mesh`, the
+    model and log-variances are rank 0's (`replicate`), and the steps run
+    over it."""
+    if mesh is not None:
+        replicate(model, mesh)
+        replicate(log_vars, mesh)
     optimizer = torch.optim.Adam(list(model.parameters()) + list(log_vars.values()),
                                  lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    return TrainState(model=model, log_vars=log_vars, optimizer=optimizer)
+    return TrainState(model=model, log_vars=log_vars, optimizer=optimizer, mesh=mesh)

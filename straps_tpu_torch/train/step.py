@@ -7,6 +7,14 @@ update of the parameters and the log-variances together -> per-frame
 metrics.  Each step returns its loss, task losses and per-frame metrics as
 device tensors; the caller pulls them to the host once per step, which is
 the step's completion barrier.
+
+Over a data mesh (`parallel.DataMesh`) each rank steps on its rows of the
+global batch: BatchNorm takes the global statistics, the loss is the
+rank's share of the global loss, and after the backward pass one SUM
+all-reduce of every gradient (with the loss shares) leaves the gradient of
+the global loss on every rank, so that Adam steps alike everywhere.  The
+step returns the global loss and task losses and the per-frame metrics of
+the global batch, gathered in global order.
 """
 
 from typing import Dict, Tuple
@@ -19,6 +27,8 @@ from straps_tpu_torch.geometry.camera import orthographic_project
 from straps_tpu_torch.geometry.rotations import rot6d_to_rotmat
 from straps_tpu_torch.losses.multi_task import multi_task_loss
 from straps_tpu_torch.metrics.compute import compute_per_frame_metrics
+from straps_tpu_torch.models.resnet import use_data_mesh
+from straps_tpu_torch.parallel.mesh import all_reduce_, gather_batch
 from straps_tpu_torch.render.soft_silhouette import soft_silhouette_from_wp
 from straps_tpu_torch.smpl.assets import SmplAssets
 from straps_tpu_torch.smpl.model import select_joint_sets, smpl_forward
@@ -36,12 +46,13 @@ def silhouette_target(proxy: torch.Tensor, wh: int) -> torch.Tensor:
                          align_corners=False)[:, 0]
 
 
-def _forward_and_dicts(model, log_vars, batch: SyntheticBatch, assets: SmplAssets,
+def _forward_and_dicts(state: TrainState, batch: SyntheticBatch, assets: SmplAssets,
                        cfg: TrainConfig, train: bool):
     """Regressor forward (BatchNorm in train or eval mode) + predicted SMPL
-    + loss.  Returns (loss, task_losses, pred_dict, target_dict,
-    predicted reposed vertices); the reposed mesh feeds only the metrics
-    and carries no gradient."""
+    + loss (this rank's share over `state.mesh`).  Returns (loss,
+    task_losses, pred_dict, target_dict, predicted reposed vertices); the
+    reposed mesh feeds only the metrics and carries no gradient."""
+    model, log_vars = state.model, state.log_vars
     model.train(train)
     cam, pose6d, shape = model(batch.proxy)
     B = cam.shape[0]
@@ -73,7 +84,8 @@ def _forward_and_dicts(model, log_vars, batch: SyntheticBatch, assets: SmplAsset
         wh = cfg.silhouette_loss_wh
         pred_dict["silhouettes"] = soft_silhouette_from_wp(pred.vertices, cam, wh)
         target_dict["silhouettes"] = silhouette_target(batch.proxy, wh)
-    loss, task_losses = multi_task_loss(log_vars, target_dict, pred_dict, cfg.img_wh)
+    loss, task_losses = multi_task_loss(log_vars, target_dict, pred_dict, cfg.img_wh,
+                                        state.mesh)
     return loss, task_losses, pred_dict, target_dict, pred_reposed.vertices
 
 
@@ -85,26 +97,44 @@ def _metrics(cfg: TrainConfig, pred_dict, target_dict, pred_reposed,
                                      target_reposed=batch.target_reposed_verts)
 
 
+def _global_losses(loss, task_losses, mesh, grads=()):
+    """The global loss and task losses, sums of the ranks' shares; `grads`
+    are summed over the ranks, in place, in the same collective."""
+    values = torch.stack([loss.detach()] + [v.detach() for v in task_losses.values()])
+    all_reduce_(list(grads) + [values], mesh)
+    return values[0], dict(zip(task_losses, values[1:]))
+
+
 def train_on_batch(state: TrainState, batch: SyntheticBatch, assets: SmplAssets,
                    cfg: TrainConfig) -> StepOutput:
     """Forward, backward and one Adam update on `batch`; `state` is updated
     in place, and each trainable's `.grad` keeps this step's gradient.
     Returns (loss, task_losses, per_frame metrics), detached, on the
-    device."""
+    device.  Over `state.mesh`, `batch` holds this rank's rows, the
+    gradients are the global loss's, and the outputs are global."""
+    mesh = state.mesh
     state.optimizer.zero_grad(set_to_none=True)
-    loss, task_losses, pred_dict, target_dict, pred_reposed = _forward_and_dicts(
-        state.model, state.log_vars, batch, assets, cfg, train=True)
+    with use_data_mesh(state.model, mesh):
+        loss, task_losses, pred_dict, target_dict, pred_reposed = _forward_and_dicts(
+            state, batch, assets, cfg, train=True)
     loss.backward()
+    if mesh is not None:
+        trainables = list(state.model.parameters()) + list(state.log_vars.values())
+        loss, task_losses = _global_losses(loss, task_losses, mesh,
+                                           grads=[p.grad for p in trainables])
     state.optimizer.step()
     state.step += 1
     per_frame = _metrics(cfg, pred_dict, target_dict, pred_reposed, batch)
+    if mesh is not None:
+        per_frame = gather_batch(per_frame, mesh)
     return loss.detach(), {k: v.detach() for k, v in task_losses.items()}, per_frame
 
 
 def make_train_step(assets: SmplAssets, cfg: TrainConfig):
     """fn(state, draws, pose (B, 72), shape (B, 10)) -> (loss, task_losses,
     per_frame): the augmented synthetic batch of `draws`, then
-    `train_on_batch`."""
+    `train_on_batch`.  Over `state.mesh`, the draws, poses and shapes are
+    this rank's rows of the global batch."""
     def step(state: TrainState, draws, pose: torch.Tensor, shape: torch.Tensor) -> StepOutput:
         batch = generate_synthetic_batch(draws, pose, shape, assets, cfg, augment=True)
         return train_on_batch(state, batch, assets, cfg)
@@ -114,11 +144,15 @@ def make_train_step(assets: SmplAssets, cfg: TrainConfig):
 def make_val_step(assets: SmplAssets, cfg: TrainConfig):
     """fn(state, pose, shape) -> (loss, task_losses, per_frame): no
     augmentation, the mean camera and crop, BatchNorm in eval mode, no
-    update."""
+    update; over `state.mesh` as `make_train_step`."""
     @torch.no_grad()
     def step(state: TrainState, pose: torch.Tensor, shape: torch.Tensor) -> StepOutput:
         batch = generate_synthetic_batch(None, pose, shape, assets, cfg, augment=False)
         loss, task_losses, pred_dict, target_dict, pred_reposed = _forward_and_dicts(
-            state.model, state.log_vars, batch, assets, cfg, train=False)
-        return loss, task_losses, _metrics(cfg, pred_dict, target_dict, pred_reposed, batch)
+            state, batch, assets, cfg, train=False)
+        per_frame = _metrics(cfg, pred_dict, target_dict, pred_reposed, batch)
+        if state.mesh is not None:
+            loss, task_losses = _global_losses(loss, task_losses, state.mesh)
+            per_frame = gather_batch(per_frame, state.mesh)
+        return loss, task_losses, per_frame
     return step

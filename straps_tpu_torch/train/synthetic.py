@@ -7,7 +7,8 @@ bbox crop -> part removal, occlusion, joint noise -> heatmaps -> the
 18-channel NHWC proxy, batched over the leading dimension and without
 gradients.  The random draws of a step are one `SyntheticDraws`, made by
 `draw_synthetic` from a `torch.Generator`; the validation path draws
-nothing.
+nothing.  Over a data mesh every rank draws the global batch's draws from
+the same seeded generator and keeps its rows (`shard_draws`).
 """
 
 from typing import NamedTuple, Optional
@@ -26,6 +27,7 @@ from straps_tpu_torch.geometry.bbox import batch_crop_and_resize
 from straps_tpu_torch.geometry.camera import get_intrinsics_matrix, perspective_project
 from straps_tpu_torch.geometry.heatmaps import joints_to_gaussian_heatmaps
 from straps_tpu_torch.geometry.joints import check_joints2d_visibility
+from straps_tpu_torch.parallel.mesh import batch_rows
 from straps_tpu_torch.render.renderer import render_part_seg
 from straps_tpu_torch.smpl.assets import SmplAssets
 from straps_tpu_torch.smpl.model import select_joint_sets, smpl_forward
@@ -67,6 +69,16 @@ def draw_synthetic(generator: torch.Generator, batch_size: int, num_verts: int,
     proxy = draw_proxy_augment(generator, B, num_verts, cfg.img_wh, cfg.img_wh,
                                cfg.proxy_augment, device)
     return SyntheticDraws(betas, cam_xy, cam_z, scale, centre, proxy)
+
+
+def shard_draws(draws: SyntheticDraws, mesh) -> SyntheticDraws:
+    """This rank's rows (`parallel.batch_rows`) of a global batch's draws:
+    the batch is axis 1 of `proxy.remove` (n_classes, B) and axis 0 of
+    every other field."""
+    rows = batch_rows(draws.cam_z.shape[0], mesh)
+    proxy = type(draws.proxy)(*(v[:, rows] if k == "remove" else v[rows]
+                                for k, v in draws.proxy._asdict().items()))
+    return SyntheticDraws(*(v[rows] for v in draws[:-1]), proxy)
 
 
 def build_proxy(seg: torch.Tensor, joints2d: torch.Tensor, img_wh: int,

@@ -38,7 +38,8 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for module in ([f"perception/{m}" for m in PERCEPTION]
                    + ["utils/image", "utils/png", "eval_harness/datasets",
-                      "render/soft_silhouette", "utils/model_utils", "utils/profiling"]):
+                      "render/soft_silhouette", "utils/model_utils", "utils/profiling",
+                      "parallel/__init__", "parallel/mesh", "parallel/dryrun"]):
         assert f"straps_tpu_torch/{module}.py" in names, module
 
 

@@ -240,10 +240,10 @@ def test_multi_task_loss_matches_jax():
 
 
 def test_train_config_matches_jax(tmp_path):
-    """Every field of the JAX package's TrainConfig but the three the port
+    """Every field of the JAX package's TrainConfig but the two the port
     leaves out has the same default; YAML then `key=value` overrides load
     as the JAX package's `load_config` loads them."""
-    left_out = {"render", "smpl_precision", "data_parallel_devices"}
+    left_out = {"render", "smpl_precision"}
     want = dataclasses.asdict(JaxTrainConfig())
     assert dataclasses.asdict(TrainConfig()) == {k: v for k, v in want.items()
                                                  if k not in left_out}
@@ -359,6 +359,25 @@ def test_full_loop_with_checkpoint_and_resume(tmp_path, tassets):
     assert len(tracker2.history["train_losses"]) == 3
     assert tracker2.history["train_losses"][:2] == tracker.history["train_losses"][:2]
     assert state2.step == 3
+
+
+def test_resume_keeps_the_configured_learning_rate(tmp_path, tassets):
+    """A state restored from a checkpoint takes its Adam moments and step
+    from it but keeps its own learning rate, as the JAX loop's resume
+    builds its optimizer from `cfg.lr`."""
+    cfg = tiny_config(tmp_path)
+    cfg.lr = 1e-3
+    _, _, saved, train_step, _ = build_training(cfg, assets=tassets, device="cpu")
+    draws = draw_synthetic(torch.Generator().manual_seed(0), B, tassets.num_verts, cfg, "cpu")
+    train_step(saved, draws, torch.zeros(B, 72), torch.zeros(B, 10))
+    cfg.lr = 2e-5
+    state = build_training(cfg, assets=tassets, device="cpu")[2]
+    state.load_state_dict(saved.state_dict())
+    assert [g["lr"] for g in state.optimizer.param_groups] == [2e-5]
+    assert state.step == 1 and state.digest() == saved.digest()
+    moments = state.optimizer.state_dict()["state"]
+    for i, v in saved.optimizer.state_dict()["state"].items():
+        assert torch.equal(moments[i]["exp_avg_sq"], v["exp_avg_sq"]), i
 
 
 def test_small_val_set_and_final_epoch_checkpoint(tmp_path, tassets):
