@@ -6,7 +6,8 @@
 Phases, each of which raises on failure:
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles both rasteriser kernels from `straps_tpu_torch/csrc`
-     (each `.cu` with the shared `raster_span.cuh`), one nvcc each,
+     (each `.cu` with the shared `raster_span.cuh`), one nvcc each, and
+     the host C++ there (the JPEG decoder, the npy reader) with g++, all
      started together;
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card, bit for bit (packed keys; face ids and depths): two triangles;
@@ -97,6 +98,18 @@ Phases, each of which raises on failure:
        rank and bitwise-identical replicas after it; `run_train
        data_parallel_devices=<cards + 1>` exits non-zero with its message
        before writing a file;
+     - JPEG photos and the whole vis output: the fixtures of
+       `tests/torch_jpeg/` decoded and held to the SHA-256 of cv2.imread's
+       pixels committed beside them; the predict CLI over phase 4d's 16
+       PNGs and those 6 JPEGs through PointRend at full width (every image
+       with detections, finite outputs, exactly 2 face-id launches held bit
+       for bit, the cached rerun identical, a 640x480 `verts_vis` figure
+       and red joint-index text for every image), `verts_over_image_vis`
+       of two of its images on the card and on the CPU (no pixel may
+       differ, and the predict's file equals the card's figure); the
+       predict CLI over phase 4b's 64 cached proxies read by the native
+       reader (its batch equal to numpy's, exactly 2 face-id launches, 64
+       400x400 3D scatters);
   5. times: each kernel at B=64, 256x256 (packed: culled eval bodies;
      face-id: unculled, the predict renders' own bodies), beside its bound
      and its plain version; the evaluation's and the predict's wall time;
@@ -125,7 +138,13 @@ Phases, each of which raises on failure:
      phase 4h's ranks' launches, which its `launches` include.  The warm
      released-configuration train step in an NCCL rank of one, through
      the plain path and the mesh path in turns, with the collectives and
-     bytes of a mesh step.
+     bytes of a mesh step.  Phase 4i's work, medians of 5: `decode_jpeg`
+     of each fixture (host), the 128 cached npy files through the native
+     reader and through a numpy loop, `verts_over_image_vis` and
+     `scatter_vis` per image (figure alone, and with its PNG write), and
+     the warm mixed-format predict; the face-id entry's
+     `jpeg_path_launches` and `native_cached_launches` count phase 4i's
+     launches, which its `launches` include.
 The whole run's wall time, then the card's name and power limit come
 before the `kernels` JSON, which is on the line before the last; the result
 JSON is last.
@@ -133,6 +152,7 @@ Exits non-zero without a card, and outside a checkout of the repository.
 """
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -720,6 +740,8 @@ def profile_run(card, label, n, unit, run, top=10, host_top=8):
 
 # The detector slice (phase 4d): a 512 frame, detectron2's 800 test size.
 DET_FRAME, DET_TEST = 512, 800
+# The host C++ of `straps_tpu_torch/csrc/`, built with g++ beside the kernels.
+HOST_SOURCES = ("jpeg_decode", "straps_io")
 DET_SEED = 1
 RPN_DELTA_SCALE = 0.1
 
@@ -1121,11 +1143,12 @@ def run_image_predict(pipe, run_predict, argv):
                 det_outs.append(out)
             return out
         setattr(pipe, name, wrapper)
-    timed("read_images", "PNG reads, padding and resizes to 512")
+    timed("read_images", "image reads, padding and resizes to 512")
     timed("build_detector_models", "detectors built from their pickles")
     timed("run_detector_batched", "both detectors (first calls)", record=True)
     timed("load_regressor_variables", "regressor built and loaded")
     timed("render_body_vis_batch", "body renders")
+    timed("write_verts_vis", "verts_vis figures")
     timed("write_png", "PNG writes")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1161,8 +1184,14 @@ def check_image_predict(label, pred, out_dir, det_outs, assets, ckpt, run_predic
             if not np.isfinite(np.load(os.path.join(out_dir, f"{name}_{key}.npy"))).all():
                 raise AssertionError(f"non-finite {name}_{key}.npy")
         for f in (f"rend_vis/rend_{name}.png", f"rend_vis/reposed_{name}.png",
-                  f"proxy_vis/silhouette_{name}.png", f"proxy_vis/joints2D_{name}.png"):
+                  f"proxy_vis/silhouette_{name}.png"):
             decode_png(os.path.join(out_dir, f))
+        joints = decode_png(os.path.join(out_dir, "proxy_vis", f"joints2D_{name}.png"))
+        red = int((joints == np.array([255, 0, 0], np.uint8)).all(-1).sum())
+        figure = decode_png(os.path.join(out_dir, "verts_vis", f"verts_{name}.png"))
+        if figure.shape != (480, 640, 4) or red == 0:
+            raise AssertionError(f"{name}: verts_vis {figure.shape} (want 480x640 RGBA) or "
+                                 f"joints2D without red index text ({red} px)")
     n = len(pred["names"])
     faceid_errs.append(compare_faceid(
         f"{label} image predict rend B={n} 256x256",
@@ -1242,13 +1271,17 @@ def main() -> int:
 
     dev = resolve_device("cuda")
 
-    # 2. Build: one nvcc per kernel source, all started together.
+    # 2. Build: one nvcc per kernel source and one g++ per host C++ source
+    # (the JPEG decoder, the npy reader), all started together.
+    from straps_tpu_torch.utils import native_build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(CR.KERNELS)) as pool:
+    with ThreadPoolExecutor(len(CR.KERNELS) + len(HOST_SOURCES)) as pool:
+        host = [pool.submit(native_build.host_library, name) for name in HOST_SOURCES]
         libs = list(pool.map(lambda k: CR.build_library(k.source), CR.KERNELS))
+        host_libs = [h.result()._name for h in host]
     for kernel in CR.KERNELS:
         kernel.function()
-    print(f"build: {', '.join(libs)} in {time.perf_counter() - t0:.2f} s")
+    print(f"build: {', '.join(libs + host_libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         with open(lib + ".log") as f:
             print(f.read().strip())
@@ -1723,6 +1756,104 @@ def main() -> int:
             or f"requested a {ranks}-device mesh but only" not in message):
         raise AssertionError("run_train with more ranks than cards did not refuse")
 
+    # 4i. JPEG photos and the whole vis output.  (a) The fixtures of
+    # tests/torch_jpeg decoded here, against the SHA-256 of cv2.imread's
+    # pixels committed beside them.
+    from straps_tpu_torch.data import native_io
+    from straps_tpu_torch.render import figures
+    from straps_tpu_torch.utils.image import cv2_resize_linear_u8
+    from straps_tpu_torch.utils.jpeg import decode_jpeg
+    jpeg_dir = os.path.join(HERE, "tests", "torch_jpeg")
+    with open(os.path.join(jpeg_dir, "expected.json")) as f:
+        jpeg_expected = json.load(f)
+    for name, want in sorted(jpeg_expected.items()):
+        px = decode_jpeg(os.path.join(jpeg_dir, name))
+        digest = hashlib.sha256(np.ascontiguousarray(px).tobytes()).hexdigest()
+        same = list(px.shape) == want["shape"] and digest == want["sha256"]
+        print(f"jpeg: {name} {px.shape[1]}x{px.shape[0]} sha256 {digest[:16]} (cv2.imread "
+              f"{want['sha256'][:16]}): equal {same}")
+        if not same:
+            raise AssertionError(f"{name}: decoded pixels differ from cv2.imread's")
+
+    # (b) The predict CLI over phase 4d's 16 PNGs and the fixture JPEGs
+    # through PointRend at full width: detections, finite outputs, exactly 2
+    # face-id launches held bit for bit, the cached rerun identical, a
+    # 640x480 verts_vis figure and joint-index text for every image.
+    mixed_dir = os.path.join(tmp.name, "mixed")
+    os.makedirs(mixed_dir)
+    for d, files in ((img_dir, os.listdir(img_dir)), (jpeg_dir, jpeg_expected)):
+        for f in files:
+            os.symlink(os.path.join(d, f), os.path.join(mixed_dir, f))
+    mixed_out = os.path.join(tmp.name, "predict_mixed")
+    mixed_argv = ["--input", mixed_dir] + image_argv[2:]
+    reset_launches()
+    pred_mixed, mixed_s, mixed_stage_s, mixed_det = run_image_predict(
+        pipe, run_predict, mixed_argv + ["--out-dir", mixed_out])
+    jpeg_launches = CR.faceid_raster_kernel.launches
+    n_mixed = len(pred_mixed["names"])
+    print(f"slice: predict of {n_mixed} images ({n_img} PNG + {len(jpeg_expected)} JPEG) through "
+          f"Keypoint-RCNN + PointRend R50-FPN at {DET_TEST}x{DET_TEST}, frame {DET_FRAME}, "
+          f"first run: {mixed_s:.3f} s wall, face-id kernel launches {jpeg_launches} (rend 1 + "
+          f"reposed 1); of the wall: " + ", ".join(f"{k} {v:.3f} s"
+                                                    for k, v in mixed_stage_s.items()))
+    if jpeg_launches != 2 or n_mixed != n_img + len(jpeg_expected):
+        raise AssertionError(f"mixed predict: {n_mixed} images, {jpeg_launches} face-id launches")
+    check_image_predict("PointRend (PNG + JPEG)", pred_mixed, mixed_out, mixed_det, assets,
+                        ckpt_pred, run_predict, faceid_errs)
+    # verts_over_image_vis of two of the images (a PNG, a JPEG) on the card
+    # and on the CPU: their inputs as the predict makes them.
+    mixed_frames = pipe.read_images(mixed_dir, DET_FRAME, "cpu")[1]
+    figure_inputs = []
+    for name in (pred_mixed["names"][0], "progressive_420"):
+        i = pred_mixed["names"].index(name)
+        sil = np.load(os.path.join(mixed_out, "proxies", f"{name}_silhouette.npy"))
+        crop = pipe.crop_image_like_proxy(sil, mixed_frames[i].numpy())
+        v = torch.as_tensor(pred_mixed["verts"][i:i + 1])
+        cam = torch.as_tensor(pred_mixed["cam_wp"][i:i + 1])
+        verts2d = pipe.undo_keypoint_normalisation(pipe.orthographic_project(v, cam),
+                                                   pipe.VERTS_VIS_WH)[0]
+        figure_inputs.append((name, verts2d, torch.as_tensor(crop)))
+        card_fig = figures.verts_over_image_figure(
+            verts2d.to(dev), cv2_resize_linear_u8(torch.as_tensor(crop, device=dev), 512, 512))
+        cpu_fig = figures.verts_over_image_figure(
+            verts2d, cv2_resize_linear_u8(torch.as_tensor(crop), 512, 512))
+        diff = (card_fig.cpu().to(torch.int64) - cpu_fig.to(torch.int64)).abs()
+        saved = decode_png(os.path.join(mixed_out, "verts_vis", f"verts_{name}.png"))
+        print(f"reference check, verts_over_image_vis of {name} ({len(verts2d)} vertices over "
+              f"its 512x512 crop), card vs CPU: {int((diff > 0).any(-1).sum())} of "
+              f"{diff.shape[0] * diff.shape[1]} pixels differ, largest {int(diff.max())} levels "
+              f"(bound: none differ); the predict's file equal to the card's "
+              f"{np.array_equal(saved, card_fig.cpu().numpy())}")
+        if diff.max() > 0 or not np.array_equal(saved, card_fig.cpu().numpy()):
+            raise AssertionError(f"verts_over_image_vis of {name}: card and CPU differ")
+
+    # (c) The predict CLI over phase 4b's 64 cached proxies, read by the
+    # native reader: its batch equals numpy's, and 64 400x400 3D scatters.
+    sil_files = sorted(f for f in os.listdir(proxy_dir) if f.endswith("_silhouette.npy"))
+    sil_paths = [os.path.join(proxy_dir, f) for f in sil_files]
+    joint_paths = [p.replace("_silhouette.npy", "_joints2D.npy") for p in sil_paths]
+    npy_paths = sil_paths + joint_paths
+    native_sils = native_io.load_npy_batch(sil_paths, (512, 512))
+    native_joints = native_io.load_npy_batch(joint_paths, (17, 2))
+    same = (np.array_equal(native_sils, np.stack([np.load(p) for p in sil_paths]))
+            and np.array_equal(native_joints, np.stack([np.load(p) for p in joint_paths])))
+    cached_vis_out = os.path.join(tmp.name, "predict_cached_vis")
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        pred_cached = run_predict.main(["--input", proxy_dir, "--checkpoint", ckpt_pred,
+                                        "--out-dir", cached_vis_out, "--device", "cuda"])
+    cached_vis_launches = CR.faceid_raster_kernel.launches
+    scatters = [decode_png(os.path.join(cached_vis_out, "verts_vis", f"verts_{name}.png"))
+                for name in pred_cached["names"]]
+    print(f"slice: {len(npy_paths)} cached npy files through the native reader equal to numpy's "
+          f"{same}; predict over the {n} cached proxies: face-id launches "
+          f"{cached_vis_launches}, {len(scatters)} verts_vis scatters of shapes "
+          f"{sorted({a.shape for a in scatters})}")
+    if (not same or cached_vis_launches != 2 or len(scatters) != n
+            or any(a.shape != (400, 400, 4) for a in scatters)):
+        raise AssertionError("cached predict through the native reader: proxies, launches or "
+                             "scatters wrong")
+
     # 5. Times.
     flat, bounds, attr = smpl_kernel_inputs(assets, 256, 64, seed=5)
     kernel_ms = cuda_ms(lambda: CR.packed_raster_kernel(flat, bounds, attr, 256, 256), 200)
@@ -1792,6 +1923,54 @@ def main() -> int:
                 f"image-frame IoU", n, "samples",
                 lambda: run_evaluation(release_data, PredictConfig(checkpoint=ckpt),
                                        batch_size=batch, device="cuda", iou_frame="image"))
+
+    # Phase 4i's host and figure work, each a median of 5: the JPEG decoder
+    # per fixture (host), the 128 cached npy files through the native
+    # reader and through a numpy loop, the two figures per image on the
+    # card (figure and PNG write), and the warm mixed-format predict.
+    def median_s(fn, reps=5):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+        return float(np.median(ts))
+
+    for name in sorted(jpeg_expected):
+        path = os.path.join(jpeg_dir, name)
+        shape = jpeg_expected[name]["shape"]
+        print(f"times on {card}: decode_jpeg {name} ({shape[1]}x{shape[0]}) "
+              f"{1e3 * median_s(lambda: decode_jpeg(path)):.3f} ms (host)")
+    native_s = median_s(lambda: (native_io.load_npy_batch(sil_paths, (512, 512)),
+                                 native_io.load_npy_batch(joint_paths, (17, 2))))
+    numpy_s = median_s(lambda: (np.stack([np.load(p) for p in sil_paths]),
+                                np.stack([np.load(p) for p in joint_paths])))
+    print(f"times on {card}: load_npy_batch of {len(npy_paths)} cached npy files "
+          f"({n} x 512x512 + {n} x 17x2 float32): native {1e3 * native_s:.3f} ms, numpy loop "
+          f"{1e3 * numpy_s:.3f} ms (host)")
+    fig_dir = os.path.join(tmp.name, "figures")
+    for name, verts2d, crop in figure_inputs:
+        v2, crop512 = verts2d.to(dev), cv2_resize_linear_u8(crop.to(dev), 512, 512)
+        fig_s = median_s(lambda: figures.verts_over_image_figure(v2, crop512))
+        vis_s = median_s(lambda: figures.verts_over_image_vis(
+            v2, crop512, os.path.join(fig_dir, f"v_{name}.png")))
+        print(f"times on {card}: verts_over_image_vis of {name} ({len(v2)} vertices) "
+              f"{1e3 * vis_s:.3f} ms, of which the figure {1e3 * fig_s:.3f} ms")
+    body = torch.as_tensor(pred_cached["verts"][0], device=dev)
+    fig_s = median_s(lambda: figures.scatter_figure(body))
+    vis_s = median_s(lambda: figures.scatter_vis(body, os.path.join(fig_dir, "s.png")))
+    print(f"times on {card}: scatter_vis of one body ({len(body)} vertices) {1e3 * vis_s:.3f} ms, "
+          f"of which the figure {1e3 * fig_s:.3f} ms")
+    mixed_cfg = PredictConfig(input_dir=mixed_dir, checkpoint=ckpt_pred,
+                              silhouettes_from="pointrend", keypoint_checkpoint=pkls[0],
+                              silhouette_checkpoint=pkls[1], out_dir=mixed_out)
+    mixed_warm_s = median_s(lambda: predict_3d(mixed_cfg, device="cuda"))
+    print(f"times on {card}: warm predict of {n_mixed} images ({n_img} PNG + "
+          f"{len(jpeg_expected)} JPEG) through both detectors at {DET_TEST}x{DET_TEST}, "
+          f"every vis file written: {mixed_warm_s:.3f} s wall, median of 5 "
+          f"({n_mixed / mixed_warm_s:.2f} images/s)")
 
     # The train step at the released configuration (batch 140, 256x256,
     # bfloat16 encoder): the whole step as the loop runs it (draws,
@@ -1927,13 +2106,18 @@ def main() -> int:
         "inputs": f"B={n} 256x256 unculled predict rend bodies; image_path_launches and "
                   f"densepose_path_launches: the predicts from {n_img} PNG images through "
                   f"PointRend and DensePose (rend + reposed); r50_predict_launches: the "
-                  f"predict of the {n} cached proxies with the ResNet-50 checkpoint",
-        "launches": faceid_launches + r50_predict_launches, "max_abs_err": max(faceid_errs),
+                  f"predict of the {n} cached proxies with the ResNet-50 checkpoint; "
+                  f"jpeg_path_launches: the predict of {n_mixed} PNG + JPEG images through "
+                  f"PointRend; native_cached_launches: the predict of the {n} cached "
+                  f"proxies read by the native reader, 3D scatters written",
+        "launches": faceid_launches + r50_predict_launches + jpeg_launches + cached_vis_launches,
+        "max_abs_err": max(faceid_errs),
         "ms": faceid_ms,
         "plain_ms": faceid_plain_ms, "bound_ms": faceid_bound_ms,
         "bound_by": faceid_bound_by, "library_ms": None,
         "image_path_launches": image_launches, "densepose_path_launches": dp_launches,
-        "r50_predict_launches": r50_predict_launches}]}))
+        "r50_predict_launches": r50_predict_launches, "jpeg_path_launches": jpeg_launches,
+        "native_cached_launches": cached_vis_launches}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

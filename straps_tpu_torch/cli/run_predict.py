@@ -8,7 +8,9 @@
 
 With `--silh-from cached`, `--input` holds `<name>_silhouette.npy` +
 `<name>_joints2D.npy` per image; with `--silh-from pointrend` or
-`densepose`, PNG images, which go through Keypoint-RCNN R50-FPN and
+`densepose`, `.png` and `.jpg` images (JPEGs decoded as cv2.imread decodes
+them; arithmetic-coded, lossless, hierarchical, 12-bit and CMYK JPEGs are
+refused by name), which go through Keypoint-RCNN R50-FPN and
 PointRend R50-FPN or DensePose-RCNN R101-FPN (detectron2 pickles).  Runs on
 CUDA unless `--device cpu` is given.
 """
@@ -25,8 +27,9 @@ _DETECTOR_FLAGS = ("keypoint_checkpoint", "silhouette_checkpoint", "allow_random
 def build_parser():
     parser = argparse.ArgumentParser(description="Predict 3D human shape/pose")
     parser.add_argument("--input", required=True,
-                        help="input dir: *.png images (--silh-from pointrend|densepose) "
-                             "or cached proxies, *_silhouette.npy + *_joints2D.npy")
+                        help="input dir: *.png and *.jpg images (--silh-from "
+                             "pointrend|densepose) or cached proxies, *_silhouette.npy + "
+                             "*_joints2D.npy")
     parser.add_argument("--checkpoint", default=None,
                         help="reference-format .tar or a training checkpoint .pt of "
                              "the port; none = seeded random weights")

@@ -4,7 +4,7 @@ path over cached proxies or images (counterpart of
 
 regressor -> rot6d -> SMPL -> reposed SMPL -> projection, in one call under
 `torch.inference_mode`.  The proxies come from cached silhouettes and
-joints, or from PNG images through the detector front end
+joints, or from PNG and JPEG images through the detector front end
 (`detect_and_build_proxies`): Keypoint-RCNN joints, and PointRend or
 DensePose silhouettes.
 """
@@ -37,14 +37,15 @@ from straps_tpu_torch.perception.frontend import (
 )
 from straps_tpu_torch.predict.proxy import batch_silhouettes_joints_to_proxies
 from straps_tpu_torch.render.vis import (
-    densepose_overlay_vis, keypoints_vis, proxy_vis_batch,
-    render_body_vis_batch, silhouette_overlay_vis,
+    densepose_overlay_vis, keypoints_vis, proxy_vis_batch, render_body_vis_batch,
+    scatter_vis, silhouette_overlay_vis, verts_over_image_vis,
 )
 from straps_tpu_torch.smpl.assets import SmplAssets, load_assets
 from straps_tpu_torch.smpl.model import select_joint_sets, smpl_forward
 from straps_tpu_torch.utils.checkpoints import load_checkpoint
 from straps_tpu_torch.utils.device import resolve_device
 from straps_tpu_torch.utils.image import cv2_resize_linear_u8
+from straps_tpu_torch.utils.jpeg import decode_jpeg
 from straps_tpu_torch.utils.png import decode_png, write_png
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -222,21 +223,27 @@ def build_detector_models(cfg: PredictConfig, output_size: int, device="cuda",
     return models[0], models[1]
 
 
+def read_image(path: str) -> np.ndarray:
+    """One image file as `cv2.imread(path)[:, :, ::-1]` reads it: uint8
+    (H, W, 3) RGB; `.jpg` through the JPEG decoder, the rest as PNG."""
+    if path.lower().endswith(".jpg"):
+        return decode_jpeg(path)
+    return decode_png(path)
+
+
 def read_images(input_dir: str, size: int, device) -> Tuple[List[str], torch.Tensor]:
-    """The folder's `*.png` images, sorted by name: each padded to a square
-    and resized to (size, size) as cv2's INTER_LINEAR does
-    (`predict_3D.py:97-108`) -> names and (N, size, size, 3) uint8 RGB on
-    `device`.  `.jpg` files are refused (no JPEG decoder is ported)."""
-    jpgs = sorted(glob.glob(os.path.join(input_dir, "*.jpg")))
-    if jpgs:
-        raise ValueError(f"JPEG inputs are not read by the PyTorch port (no JPEG decoder "
-                         f"yet; convert them to PNG): {jpgs}")
-    paths = sorted(glob.glob(os.path.join(input_dir, "*.png")))
+    """The folder's `*.png` and `*.jpg` images in the JAX pipeline's order
+    (sorted by full path, so a PNG and a JPEG of one stem are two entries):
+    each padded to a square and resized to (size, size) as cv2's
+    INTER_LINEAR does (`predict_3D.py:97-108`) -> names and (N, size,
+    size, 3) uint8 RGB on `device`."""
+    paths = sorted(glob.glob(os.path.join(input_dir, "*.png"))
+                   + glob.glob(os.path.join(input_dir, "*.jpg")))
     if not paths:
         raise FileNotFoundError(f"no images in {input_dir}")
     names, images = [], []
     for path in paths:
-        img = decode_png(path)
+        img = read_image(path)
         top, left = pad_to_square_params(*img.shape[:2])
         img = np.pad(img, ((top, top), (left, left), (0, 0)))
         images.append(cv2_resize_linear_u8(torch.as_tensor(img, device=device), size, size))
@@ -343,6 +350,28 @@ def crop_image_like_proxy(sil: np.ndarray, img: np.ndarray,
     return out
 
 
+VERTS_VIS_WH = 512
+
+
+@torch.inference_mode()
+def write_verts_vis(out_dir: str, names: Sequence[str], verts: torch.Tensor,
+                    cam_wp: torch.Tensor, crops: Optional[Sequence[np.ndarray]]) -> None:
+    """`verts_vis/verts_<name>.png` per image (`predict_3D.py:144-167`):
+    with image crops, the vertices projected with the weak-perspective
+    camera and un-normalised to 512 px, over the crop resized to 512 x 512
+    (cv2's INTER_LINEAR); without, the vertices' 3D scatter."""
+    for i, name in enumerate(names):
+        path = os.path.join(out_dir, "verts_vis", f"verts_{name}.png")
+        if crops is None:
+            scatter_vis(verts[i], path)
+            continue
+        verts2d = undo_keypoint_normalisation(
+            orthographic_project(verts[i:i + 1], cam_wp[i:i + 1]), VERTS_VIS_WH)[0]
+        crop = cv2_resize_linear_u8(torch.as_tensor(crops[i], device=verts.device),
+                                    VERTS_VIS_WH, VERTS_VIS_WH)
+        verts_over_image_vis(verts2d, crop, path)
+
+
 # The reference's reposed view: the T-pose at weak-perspective camera
 # [0.8, 0, -0.2], rotated 180 degrees about x (`predict_3D.py:172-176`).
 REPOSED_CAM_WP = (0.8, 0.0, -0.2)
@@ -362,10 +391,13 @@ def predict_3d(cfg: PredictConfig, save_vis: bool = True,
     lives in, for images) and `rend_vis/reposed_<name>.png` at `cfg.img_wh`
     (lit as in the reference's pyrender scene), and `proxy_vis/<name>.png`
     for cached proxies or `proxy_vis/silhouette_<name>.png` and
-    `proxy_vis/joints2D_<name>.png` for images.  All bodies of a vis kind
-    are rendered in one face-id rasterisation.  Returns the predictions as
-    numpy arrays, plus `names`.  The 2D vertex scatter `verts_vis/` is not
-    written (it needs matplotlib).
+    `proxy_vis/joints2D_<name>.png` (with the joint indices) for images,
+    and `verts_vis/verts_<name>.png`: the predicted vertices projected with
+    the camera over the 512 x 512 resize of the image crop, or the 3D
+    scatter of the vertices for cached proxies (matplotlib's figures,
+    `render/figures.py`).  All bodies of a vis kind are rendered in one
+    face-id rasterisation.  Returns the predictions as numpy arrays, plus
+    `names`.
     """
     if cfg.silhouettes_from not in ("cached",) + DETECTOR_FRONT_ENDS:
         raise ValueError(f"silhouettes_from must be 'cached', 'pointrend' or 'densepose', "
@@ -404,6 +436,8 @@ def predict_3d(cfg: PredictConfig, save_vis: bool = True,
                               "joints2D_": vis["joints_vis"]}
         rend, reposed = rend.cpu().numpy(), reposed.cpu().numpy()
         proxy_imgs = {k: v.cpu().numpy() for k, v in proxy_imgs.items()}
+        write_verts_vis(cfg.out_dir, names, out["verts"], out["cam_wp"],
+                        None if vis is None else vis["crops"])
         for i, name in enumerate(names):
             write_png(os.path.join(cfg.out_dir, "rend_vis", f"rend_{name}.png"), rend[i])
             write_png(os.path.join(cfg.out_dir, "rend_vis", f"reposed_{name}.png"), reposed[i])

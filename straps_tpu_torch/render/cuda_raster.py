@@ -23,19 +23,16 @@ through the plain version.
 """
 
 import ctypes
-import hashlib
 import os
-import re
 import shutil
-import subprocess
-import tempfile
 import threading
-from typing import List, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from straps_tpu_torch.render.raster import pad_face_planes
+from straps_tpu_torch.utils import native_build
 
 FACE_CHUNK = 128          # faces per chunk; the kernels' bounds granularity
 ROWS_PER_TILE = 8         # pixel rows of one kernel block
@@ -48,8 +45,7 @@ PACKED_INIT = int(np.float32(FACEID_BG_DEPTH).view(np.int32)) & ~_ATTR_MASK
 # Bytes of one (sub-batch, chunk, rows, W) temporary of a plain version.
 _PLAIN_TEMP_BYTES = 1 << 28
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+_PKG_DIR = native_build.PKG_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -67,29 +63,10 @@ def _find_nvcc() -> str:
     return found
 
 
-def _local_includes(source: str) -> List[str]:
-    """`source` and every file of its directory that it includes with
-    `#include "..."`, directly or through another such file."""
-    found, todo = [], [os.path.abspath(source)]
-    while todo:
-        path = todo.pop()
-        if path in found:
-            continue
-        found.append(path)
-        with open(path) as f:
-            names = re.findall(r'^\s*#\s*include\s*"([^"]+)"', f.read(), re.MULTILINE)
-        todo += [os.path.join(os.path.dirname(path), n) for n in names]
-    return found
-
-
 def source_digest(source: str) -> str:
     """Hash of `source`, the headers of `csrc/` it includes and the nvcc
     flags: the key of a built library."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _local_includes(source):
-        with open(path, "rb") as f:
-            digest.update(f.read())
-    return digest.hexdigest()[:16]
+    return native_build.source_digest(source, NVCC_FLAGS)
 
 
 def build_library(source: str) -> str:
@@ -98,23 +75,10 @@ def build_library(source: str) -> str:
     (registers, shared memory, spills) is kept beside it as
     `<library>.log`.  Returns the library's path; raises RuntimeError when
     nvcc fails."""
-    stem = os.path.splitext(os.path.basename(source))[0]
-    lib_path = os.path.join(_BUILD_DIR, f"{stem}_{source_digest(source)}.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp_path = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp_path, source]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp_path)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    with open(lib_path + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp_path, lib_path)
-    return lib_path
+    return native_build.build_library(source, _find_nvcc(), NVCC_FLAGS, ("-Xptxas", "-v"))
+
+
+_local_includes = native_build.local_includes
 
 
 class _RasterKernel:

@@ -1,4 +1,4 @@
-"""Visualisation renders (counterpart of part of `straps_tpu/render/vis.py`).
+"""Visualisation renders (counterpart of `straps_tpu/render/vis.py`).
 
 The reference's pyrender scene is replaced by the face-id rasteriser plus
 a per-face lit colour: `render_body_vis` draws predicted bodies, lit
@@ -6,17 +6,17 @@ a per-face lit colour: `render_body_vis` draws predicted bodies, lit
 images of any size (resized as cv2's float INTER_LINEAR does), and
 `proxy_vis` the silhouette + summed heatmaps of a proxy.  The detector
 overlays: `silhouette_overlay_vis` (cv2.addWeighted of the mask at half
-opacity), `keypoints_vis` (cv2's filled circles of radius 5) and
-`densepose_overlay_vis` (matplotlib's viridis of the part labels, blended
-by cv2.addWeighted 0.6/0.4).  All write uint8 pixels; the files are PNGs
-from `utils/png.py`.  Batched over bodies on the tensors' device: one
-face-id rasterisation for a whole batch.
-
-Not ported yet: the matplotlib scatters (`scatter_vis`,
-`verts_over_image_vis`) and the joint-index text of `keypoints_vis`
-(cv2.putText).
+opacity), `keypoints_vis` (cv2's filled circles of radius 5 and the
+joint indices cv2.putText writes) and `densepose_overlay_vis`
+(matplotlib's viridis of the part labels, blended by cv2.addWeighted
+0.6/0.4).  matplotlib's figures of the vertices, `verts_over_image_vis`
+and `scatter_vis`, are in `render/figures.py`.  All write uint8 pixels;
+the files are PNGs from `utils/png.py`.  Batched over bodies on the
+tensors' device: one face-id rasterisation for a whole batch.
 """
 
+import base64
+import zlib
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -25,6 +25,7 @@ import torch
 from straps_tpu_torch.geometry.camera import (
     get_intrinsics_matrix, weak_perspective_to_camera_translation,
 )
+from straps_tpu_torch.render.figures import scatter_vis, verts_over_image_vis  # noqa: F401
 from straps_tpu_torch.render.raster import face_ids_to_parts
 from straps_tpu_torch.render.renderer import render_face_ids
 from straps_tpu_torch.utils.image import cv2_resize_linear_f32
@@ -278,14 +279,65 @@ def _circle_half_widths(radius: int) -> np.ndarray:
 
 KEYPOINT_RADIUS = 5
 KEYPOINT_COLOR = (0, 255, 0)
+LABEL_COLOR = (255, 0, 0)
+# The joint-index labels "0"-"16" as cv2.putText draws them
+# (FONT_HERSHEY_SIMPLEX, scale 0.5, thickness 1; cv2 5 draws every
+# lineType antialiased): label j's alpha (0-255) at row offsets -11..0 and
+# column offsets 0..17 from the text origin, (17, 12, 18) uint8, zlib and
+# base64.  Derived from cv2: each label's pixels translate exactly with the
+# integer origin, and clipping at an image edge only drops the pixels
+# outside it.
+_LABEL_ALPHA = np.frombuffer(zlib.decompress(base64.b64decode(
+    "eNq1lmtoFFcUx29iXr6SarWYZE2qoEZXfBSVqBipNkXETWKrbm0qFRQNWptYDFGCLwSfBUFjSlU0aaH9EAtpq0bxQ9Rq"
+    "EIyLJkgwZkXF+Mxmo6IN2ewcZ+/MnHvOFddP3g+X4cfuzP3POXPvT4jUtRVlEwQZkx8b/wF8R0h9+zhxFDoGIuhvHBFJ"
+    "d4rgSyRuKBTLKtNgDZIpkCeujE+G9Ug+g4Ip50UKlCBxQemxJWIqLEMS0+lrixdbYLJ6+g6AnB3Bi2Q98dUA3X8PpYsW"
+    "MWnxgo+kdQs4+LQRahnIDfhuc7Lu16SGWu0+4gMRt8fTcsXj+ViR30COJSLaSF5bUTyOglR/5+nA//MIORzIFAnN1wmp"
+    "221Ou3pi+a1iLzVxEHPA4O8s9phRxEGVsUYHP/KbHIU6jzkGIEjssXLNjBZrUXlkrCakwufzNUGLtsKq4HhO9nXP5qA0"
+    "vFhrhDA8OzmaoYxR3sbAQG0JuTAfr0dcnW7OXpirmq6tNc+98nZ7gvrDyH9C8OqMi90k3tVHjxazvEzrzSIA3r1Zr05x"
+    "knCtxsvJngeDOfm8N1cwMuj+fsHJNrh2+fItuFGJJGerOf6CvYV8QYXaeoT4uvejqG2YsilSr0WEzIYms2IHCfFCX+1f"
+    "JUH9Prvb95yq/oqSKqjdVGMcICTTbU6bYQzpusg0AdTjk0M/mfNS+puTXd9nfdvRSO7T//cgvKhJ4cV5u17DNmZy0Kfe"
+    "r/VKeSibg+zQFu0z9UPP3cPk4xY/w/GFxc+aE9V38fwPc55Bdr8MWBUJ93qnWt7TX+TuSvaE7eHNkxa0ttDylLfB83/T"
+    "+AKG8FzfyO+rlMCqm+YIGP209NfPaSDH3Mj5OOHXNpIM+fbp2PVSa5++HZXaT1YYY/VHn9XAxPA88b4x4oeKjdMomNN1"
+    "q7ohXELImUvmR7s3GKfIzchivMYQ8lZfrMzK99fTDn9k7lkGrfPVewtdMy90pqvPFgrM+ZNetW1NeovE3biXl5p9/mU6"
+    "eV0nQtDd4GYx4lzaHjG8+NCGUWx76npS1/6aNELc/YYBIvF0UL3psVAo97Ev1NuRHZUPOaqjGltHijTfQ9WHYkyz8SAM"
+    "bEtImF4W/lM7Lc7d1Wq6oXcWB+ndW99bLzyXUTyccxnFA89lFA/nXGbiIQkTD0mYeEjCxEMSJh6SKPHAcxnFA8/lqOKB"
+    "vuFcoG84F5gLL9A3qHh8oAvMhReYK6p4OHFQPJw4KB4YB8UD41DxUP7jiAcSFA+HKPGwCREPi6B4YBwUDydOdPGwcynx"
+    "cHKheFA/tMSDlgnFwyFKPGxCxMP5jRIPYoO2eEiixMPJpcQDyxRVPJT32uJBvNcSD5LLFg+Vi4iHTYh4WISKhyRMPCRh"
+    "4iGJEg/mvVI8WPu9UzzsXEo8nFwoHpgLxQNzUfGwCBUPi1DxsAgVD7vriHhIosQDc6F4YK6o4qHqZYuHqpctHqRetnio"
+    "ehHxsAgVD4tQ8ZCEiYckTDys/RDFA3OheKh6vVM83gD+oPai"
+)), np.uint8).reshape(17, 12, 18).copy()
+_LABEL_TOP = -11
+
+
+def _label_mask(labels: int, origins: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """The alpha (int32, 0-255) of label `labels` drawn at each of the
+    (B, 2) integer origins (x, y) in (B, H, W) images, clipped."""
+    B = origins.shape[0]
+    dev = origins.device
+    table = torch.as_tensor(_LABEL_ALPHA[labels], device=dev).to(torch.int32)
+    rows, cols = table.shape
+    y = origins[:, 1, None, None] + _LABEL_TOP + torch.arange(rows, device=dev)[None, :, None]
+    x = origins[:, 0, None, None] + torch.arange(cols, device=dev)[None, None, :]
+    inside = (y >= 0) & (y < H) & (x >= 0) & (x < W) & (table > 0)
+    flat = torch.arange(B, device=dev)[:, None, None] * (H * W) + y * W + x
+    alpha = torch.zeros(B * H * W, dtype=torch.int32, device=dev)
+    alpha[flat[inside]] = table.expand(B, -1, -1)[inside]
+    return alpha.view(B, H, W)
 
 
 def keypoints_vis(images: torch.Tensor, keypoints: torch.Tensor) -> torch.Tensor:
-    """Green filled circles of radius 5 at the keypoints (centres rounded
-    half to even, as `int(round(x))`), clipped to the image: cv2.circle of
-    `predict_joints2D.py:53-59`.  uint8 (B, H, W, 3) images, (B, J, >= 2)
-    keypoints -> uint8 (B, H, W, 3).  The joint-index text is not drawn."""
+    """cv2's keypoint annotation of `predict_joints2D.py:53-59`: for each
+    joint j in order a green filled circle of radius 5, then its index
+    `str(j)` in red (cv2.putText, FONT_HERSHEY_SIMPLEX, scale 0.5) with the
+    text origin at the centre, both clipped to the image; centres rounded
+    half to even, as `int(round(x))`.  The text is blended as cv2 blends
+    it: (pixel * (255 - a) + colour * a + 127) // 255 per channel.  A later
+    joint's circle covers an earlier joint's text.  uint8 (B, H, W, 3)
+    images, (B, J, >= 2) keypoints with J <= 17 -> uint8 (B, H, W, 3)."""
     B, H, W, _ = images.shape
+    J = keypoints.shape[1]
+    if J > len(_LABEL_ALPHA):
+        raise ValueError(f"labels are drawn for at most {len(_LABEL_ALPHA)} joints, got {J}")
     dev = images.device
     r = KEYPOINT_RADIUS
     half = torch.as_tensor(_circle_half_widths(r), device=dev)
@@ -293,10 +345,15 @@ def keypoints_vis(images: torch.Tensor, keypoints: torch.Tensor) -> torch.Tensor
     dy = torch.arange(H, device=dev)[None, None, :] - c[..., 1:2]              # (B, J, H)
     dx = torch.arange(W, device=dev)[None, None, :] - c[..., 0:1]              # (B, J, W)
     row_half = torch.where(dy.abs() <= r, half[dy.clamp(-r, r) + r], -1)       # (B, J, H)
-    hit = dx.abs()[..., None, :] <= row_half[..., :, None]                     # (B, J, H, W)
-    covered = hit.any(dim=1)                                                    # (B, H, W)
-    color = torch.tensor(KEYPOINT_COLOR, dtype=torch.uint8, device=dev)
-    return torch.where(covered[..., None], color, images)
+    green = torch.tensor(KEYPOINT_COLOR, dtype=torch.int32, device=dev)
+    red = torch.tensor(LABEL_COLOR, dtype=torch.int32, device=dev)
+    out = images.to(torch.int32)
+    for j in range(J):
+        circle = dx[:, j].abs()[:, None, :] <= row_half[:, j, :, None]         # (B, H, W)
+        out = torch.where(circle[..., None], green, out)
+        a = _label_mask(j, c[:, j], H, W)[..., None]
+        out = (out * (255 - a) + red * a + 127) // 255
+    return out.to(torch.uint8)
 
 
 def apply_colormap(image: torch.Tensor, vmin: float, vmax: float) -> torch.Tensor:

@@ -36,6 +36,7 @@ from straps_tpu_torch.render import vis as TV
 from straps_tpu_torch.utils.image import cv2_resize_nearest
 from test_torch_detect import FRAME, IMG, NPY_KEYS, SEED, TEST_SIZE, _files, slice_inputs  # noqa: F401
 from test_torch_perception import person_biased
+from torch_figures import assert_within_bounds, read_rgba, verts_vis_base
 from torch_margins import assert_nms_margins, record_nms
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -153,8 +154,15 @@ def test_predict_3d_densepose_from_images_vs_jax(slice_inputs, densepose_pkl,  #
     assert min(sil_agree) > 0.99 and min(joints_close) > 0.8
     for k in NPY_KEYS:
         assert np.abs(got[k] - want[k]).max() <= 1e-3 * np.abs(want[k]).max(), k
-    jax_files = [f for f in _files(tmp_path / "jax") if not f.startswith("verts_vis")]
-    assert _files(tmp_path / "torch") == jax_files
+    assert _files(tmp_path / "torch") == _files(tmp_path / "jax")
+    frames = TP.read_images(images, FRAME, "cpu")[1].numpy()
+    for i, name in enumerate(got["names"]):
+        sil = np.load(tmp_path / "jax" / "proxies" / f"{name}_silhouette.npy")
+        base = verts_vis_base(want["verts"][i], want["cam_wp"][i], sil, frames[i],
+                              TP.crop_image_like_proxy)
+        assert_within_bounds(
+            read_rgba(str(tmp_path / "torch" / "verts_vis" / f"verts_{name}.png")),
+            read_rgba(str(tmp_path / "jax" / "verts_vis" / f"verts_{name}.png")), base)
     for name in got["names"]:
         for kind in ("rend", "reposed"):
             img = mpimg.imread(str(tmp_path / "torch" / "rend_vis" / f"{kind}_{name}.png"))

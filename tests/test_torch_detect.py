@@ -43,6 +43,7 @@ from straps_tpu_torch.render import vis as TV
 from straps_tpu_torch.utils.image import cv2_resize_linear_f32, cv2_resize_linear_u8
 from straps_tpu_torch.utils.png import decode_png, write_png
 from test_torch_perception import person_biased
+from torch_figures import assert_within_bounds, read_rgba, verts_vis_base
 from torch_margins import assert_nms_margins, record_nms
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -119,14 +120,8 @@ def test_overlays_match_jax_vis():
     got_k = TV.keypoints_vis(torch.as_tensor(img), torch.as_tensor(kp)).numpy()
     for i in range(2):
         np.testing.assert_array_equal(got_s[i], JV.silhouette_overlay_vis(img[i], sil[i]))
-        # The JAX vis also writes each joint's index in red (cv2.putText,
-        # not ported): the circles alone are cv2.circle's.
-        want = img[i].copy()
-        for x, y in kp[i, :, :2]:
-            cv2.circle(want, (int(round(float(x))), int(round(float(y)))), 5, (0, 255, 0), -1)
-        np.testing.assert_array_equal(got_k[i], want)
-        text = (JV.keypoints_vis(img[i], kp[i]) != want).any(-1)
-        assert ((got_k[i] == JV.keypoints_vis(img[i], kp[i])).all(-1) | text).all()
+        # cv2.circle's circles and cv2.putText's joint indices, as the JAX vis.
+        np.testing.assert_array_equal(got_k[i], JV.keypoints_vis(img[i], kp[i]))
 
 
 def test_selection_and_crop_match_jax():
@@ -199,8 +194,9 @@ def _files(root):
                   for dp, _, fs in os.walk(root) for f in fs)
 
 
-def test_predict_3d_from_images_vs_jax(slice_inputs, tmp_path, monkeypatch):
-    images, pkls, ckpt = slice_inputs
+def _predict_vs_jax(images, pkls, ckpt, tmp_path, monkeypatch, names):
+    """predict_3d of the port and of the JAX package over `images`, held to
+    the slice's bounds; returns the port's predictions."""
     calls = record_nms(monkeypatch)
     got = TP.predict_3d(_cfg(PredictConfig, images, pkls, ckpt, str(tmp_path / "torch")),
                         device="cpu")
@@ -214,7 +210,7 @@ def test_predict_3d_from_images_vs_jax(slice_inputs, tmp_path, monkeypatch):
     monkeypatch.setattr(JPERC, "DEFAULT_IMAGE_SIZE", FRAME)
     monkeypatch.setattr(JPERC, "DETECTOR_TEST_SIZE", TEST_SIZE)
     want = JP.predict_3d(_cfg(JaxPredictConfig, images, pkls, ckpt, str(tmp_path / "jax")))
-    assert got["names"] == want["names"] == ["im0", "im1", "im2"]
+    assert got["names"] == want["names"] == names
 
     sil_agree, joints_close = [], []
     for name in got["names"]:
@@ -230,8 +226,17 @@ def test_predict_3d_from_images_vs_jax(slice_inputs, tmp_path, monkeypatch):
     for k in NPY_KEYS:
         scale = np.abs(want[k]).max()
         assert np.abs(got[k] - want[k]).max() <= 1e-3 * scale, k
-    jax_files = [f for f in _files(tmp_path / "jax") if not f.startswith("verts_vis")]
-    assert _files(tmp_path / "torch") == jax_files
+    assert _files(tmp_path / "torch") == _files(tmp_path / "jax")
+    # verts_vis: matplotlib's figure of the JAX predictions, held to
+    # torch_figures.BOUNDS.
+    frames = TP.read_images(images, FRAME, "cpu")[1].numpy()
+    for i, name in enumerate(got["names"]):
+        sil = np.load(tmp_path / "jax" / "proxies" / f"{name}_silhouette.npy")
+        base = verts_vis_base(want["verts"][i], want["cam_wp"][i], sil, frames[i],
+                              TP.crop_image_like_proxy)
+        assert_within_bounds(
+            read_rgba(str(tmp_path / "torch" / "verts_vis" / f"verts_{name}.png")),
+            read_rgba(str(tmp_path / "jax" / "verts_vis" / f"verts_{name}.png")), base)
     for name in got["names"]:
         for kind in ("rend", "reposed"):
             img = mpimg.imread(str(tmp_path / "torch" / "rend_vis" / f"{kind}_{name}.png"))
@@ -241,6 +246,12 @@ def test_predict_3d_from_images_vs_jax(slice_inputs, tmp_path, monkeypatch):
         img = mpimg.imread(str(tmp_path / "torch" / "proxy_vis" / f"silhouette_{name}.png"))
         ref = mpimg.imread(str(tmp_path / "jax" / "proxy_vis" / f"silhouette_{name}.png"))
         assert (np.abs(img - ref[..., :3]) > 1.5 / 255).any(axis=-1).mean() < 0.01
+    return got
+
+
+def test_predict_3d_from_images_vs_jax(slice_inputs, tmp_path, monkeypatch):
+    images, pkls, ckpt = slice_inputs
+    got = _predict_vs_jax(images, pkls, ckpt, tmp_path, monkeypatch, ["im0", "im1", "im2"])
     # The cached proxies the run wrote reproduce its predictions.
     cached_cfg = PredictConfig(input_dir=str(tmp_path / "torch" / "proxies"), checkpoint=ckpt,
                                img_wh=IMG, out_dir=str(tmp_path / "cached"))
@@ -280,13 +291,42 @@ def test_random_detectors_need_opting_in(slice_inputs, tmp_path):
     assert vis["joints_vis"].shape == (3, FRAME, FRAME, 3) and len(vis["crops"]) == 3
 
 
-def test_jpg_inputs_are_refused(slice_inputs, tmp_path):
+def test_jpg_inputs_are_refused(slice_inputs, tmp_path, monkeypatch):
+    """Only JPEGs of a coding the decoder does not read are refused, by
+    name.  A folder of PNG and JPEG images is read in the JAX pipeline's
+    order (sorted by full path: a PNG and a JPEG of one stem are two
+    entries) with the pixels cv2.imread gives, and predict_3d over PNG +
+    JPEG agrees with the JAX predict_3d at the slice's bounds."""
     images, pkls, ckpt = slice_inputs
-    d = tmp_path / "mixed"
-    d.mkdir()
-    for f in glob.glob(os.path.join(images, "*.png")):
-        os.symlink(f, d / os.path.basename(f))
-    cv2.imwrite(str(d / "photo.jpg"), np.zeros((8, 8, 3), np.uint8))
-    cfg = _cfg(PredictConfig, str(d), pkls, ckpt, str(tmp_path / "out"))
-    with pytest.raises(ValueError, match="photo.jpg"):
+    mixed = tmp_path / "mixed"
+    mixed.mkdir()
+    for name in ("im0.png", "im1.png"):
+        os.symlink(os.path.join(images, name), mixed / name)
+    im2 = cv2.imread(os.path.join(images, "im2.png"))
+    cv2.imwrite(str(mixed / "im2.jpg"), im2, [cv2.IMWRITE_JPEG_QUALITY, 95])
+    _predict_vs_jax(str(mixed), pkls, ckpt, tmp_path, monkeypatch, ["im0", "im1", "im2"])
+
+    both = tmp_path / "both"
+    both.mkdir()
+    for name in ("im0.png", "im1.png", "im2.png"):
+        os.symlink(os.path.join(images, name), both / name)
+    cv2.imwrite(str(both / "im1.jpg"), im2, [cv2.IMWRITE_JPEG_QUALITY, 60,
+                                             cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    cv2.imwrite(str(both / "a.jpg"), im2[::-1], [cv2.IMWRITE_JPEG_QUALITY, 80])
+    names, frames = TP.read_images(str(both), FRAME, "cpu")
+    paths = sorted(glob.glob(str(both / "*.png")) + glob.glob(str(both / "*.jpg")))
+    assert names == ["a", "im0", "im1", "im1", "im2"]
+    for path, frame in zip(paths, frames.numpy()):
+        img = cv2.imread(path)[:, :, ::-1]
+        top, left = (max(img.shape[1] - img.shape[0], 0) // 2,
+                     max(img.shape[0] - img.shape[1], 0) // 2)
+        img = np.pad(img, ((top, top), (left, left), (0, 0)))
+        np.testing.assert_array_equal(
+            frame, cv2.resize(img, (FRAME, FRAME), interpolation=cv2.INTER_LINEAR), path)
+
+    data = bytearray((mixed / "im2.jpg").read_bytes())
+    data[data.index(b"\xff\xc0") + 1] = 0xC9                  # arithmetic coding
+    (both / "photo.jpg").write_bytes(bytes(data))
+    cfg = _cfg(PredictConfig, str(both), pkls, ckpt, str(tmp_path / "out"))
+    with pytest.raises(ValueError, match="photo.jpg: SOF9"):
         TP.predict_3d(cfg, device="cpu")

@@ -39,8 +39,23 @@ def test_port_files_exist():
     for module in ([f"perception/{m}" for m in PERCEPTION]
                    + ["utils/image", "utils/png", "eval_harness/datasets",
                       "render/soft_silhouette", "utils/model_utils", "utils/profiling",
-                      "parallel/__init__", "parallel/mesh", "parallel/dryrun"]):
+                      "parallel/__init__", "parallel/mesh", "parallel/dryrun",
+                      "utils/jpeg", "utils/native_build", "data/native_io", "render/figures"]):
         assert f"straps_tpu_torch/{module}.py" in names, module
+    for source in ("jpeg_decode.cpp", "straps_io.cpp"):
+        assert (ROOT / "straps_tpu_torch" / "csrc" / source).exists(), source
+
+
+def test_host_libraries_build_from_the_port_sources_only():
+    """The host C++ is the port's own (`straps_tpu_torch/csrc/`), built into
+    `straps_tpu_torch/_build/`: no port file names the JAX package's
+    `native/` directory or its library."""
+    from straps_tpu_torch.utils import native_build
+    assert native_build.CSRC_DIR == str(ROOT / "straps_tpu_torch" / "csrc")
+    assert native_build.BUILD_DIR == str(ROOT / "straps_tpu_torch" / "_build")
+    for path in FILES:
+        text = path.read_text()
+        assert "libstraps_io" not in text and '"native"' not in text, path
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -31,6 +31,7 @@ from straps_tpu_torch.models.convert import flax_to_torch_state_dict, state_dict
 from straps_tpu_torch.predict import pipeline as TP
 from straps_tpu_torch.smpl import assets as TAS
 from straps_tpu_torch.train.loop import train
+from torch_figures import assert_within_bounds, mpl_scatter, read_rgba, text_mask
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 IMG = 64
@@ -130,8 +131,15 @@ def test_predict_3d_vs_jax(checkpoint, inputs, tmp_path):
             np.testing.assert_array_equal(
                 np.load(tmp_path / "torch" / f"{name}_{k}.npy"),
                 got[k][got["names"].index(name)])
-    jax_files = [f for f in _files(tmp_path / "jax") if not f.startswith("verts_vis")]
-    assert _files(tmp_path / "torch") == jax_files
+    assert _files(tmp_path / "torch") == _files(tmp_path / "jax")
+    # verts_vis: the 3D scatter of each body, held to torch_figures.BOUNDS
+    # against the JAX file, the tick labels left out.
+    for i, name in enumerate(got["names"]):
+        base, boxes = mpl_scatter(want["verts"][i], markers=False)
+        assert_within_bounds(
+            read_rgba(str(tmp_path / "torch" / "verts_vis" / f"verts_{name}.png")),
+            read_rgba(str(tmp_path / "jax" / "verts_vis" / f"verts_{name}.png")), base,
+            text_mask(boxes, base.shape[:2]))
     # The renders show bodies: the IEF head returns bodies near the T-pose.
     import matplotlib.image as mpimg
     for name in got["names"]:
