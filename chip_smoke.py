@@ -125,6 +125,27 @@ Phases, each of which raises on failure:
        backbone tensor (FAIL by name, exit 1).  The phase's wall time is
        printed and held to 60 s; the gate predicts with `save_vis=False`,
        so neither kernel is launched in it;
+     - the detector training side at R101-FPN width, float32: the
+       DensePose-RCNN trunk at 800x800 on 2 of phase 4d's images, 128
+       training ROIs (64 an image, seeded jitters of synthetic people, some
+       above and some below IoU 0.7) with `DensePoseDataRelative`
+       annotations (14 RLE part masks, 64-128 points, every other one
+       flipped) through `densepose_data_filter`, the legacy 14x14 pooler,
+       the DeepLab head (512 wide, 8 GroupNorm convs, ASPP (6, 12, 56),
+       NonLocal), the predictor to 56x56, `densepose_losses` and the
+       backward, on the card and on the CPU from the card's pooled
+       features (head output within 1e-4 of its largest, each loss 1e-5
+       relative, each gradient 1e-3 of its largest), its times in float32
+       and under bfloat16 autocast and its peak memory; PointRend's coarse
+       head on the same ROIs, 196 importance points drawn on the card, the
+       point head, `mask_point_loss` against 28x28 masks and the backward,
+       the CPU given the card's draws (the chosen points equal wherever the
+       top-k cut clears 1e-5, the loss 1e-5 relative, the gradients 1e-4);
+       a DeepLab pickle written by `save_d2_pkl` loaded with `strict=True`
+       and a flax DeepLab tree written from numpy through
+       `flax_detector_to_torch_state_dict`, both equal to the seeded head.
+       The phase's wall time is held to 40 s, and it launches neither
+       kernel;
   5. times: each kernel at B=64, 256x256 (packed: culled eval bodies;
      face-id: unculled, the predict renders' own bodies), beside its bound
      and its plain version; the evaluation's and the predict's wall time;
@@ -1310,6 +1331,408 @@ def gate_rows(text):
     return rows
 
 
+
+# Phase 4k: the detector training side at R101-FPN width.  Two images, 64
+# training ROIs an image (one card's share of detectron2's IMS_PER_BATCH
+# 16 over 8 GPUs), synthetic DensePose annotations.
+TRAIN_ROIS_PER_IMAGE, TRAIN_GT_PER_IMAGE, TRAIN_POINTS = 64, 4, 128
+DEEPLAB_PREFIX = "roi_heads.densepose_head."
+# The port's DeepLab head names -> the JAX head's flax scopes (phase 4k's
+# converter check writes a flax tree from numpy with them).
+FLAX_DEEPLAB = {"ASPP.convs.0.0": "aspp/conv1x1", "ASPP.convs.0.1": "aspp/gn1x1",
+                "ASPP.convs.1.0": "aspp/atrous1", "ASPP.convs.1.1": "aspp/gn_atrous1",
+                "ASPP.convs.2.0": "aspp/atrous2", "ASPP.convs.2.1": "aspp/gn_atrous2",
+                "ASPP.convs.3.0": "aspp/atrous3", "ASPP.convs.3.1": "aspp/gn_atrous3",
+                "ASPP.convs.4.1": "aspp/pool_conv", "ASPP.convs.4.2": "aspp/gn_pool",
+                "ASPP.project.0": "aspp/project", "NLBlock.theta": "nonlocal/theta",
+                "NLBlock.phi.0": "nonlocal/phi", "NLBlock.g.0": "nonlocal/g",
+                "NLBlock.W.0": "nonlocal/W", "NLBlock.W.1": "nonlocal/gn_w"}
+
+
+def synthetic_training_targets(frame_size, seed=12):
+    """Training ROIs and their DensePose targets for 2 images of
+    `frame_size`: 4 ground-truth people an image (the last without a
+    DensePose annotation), 64 proposals an image as seeded jitters of them
+    (some above and some below IoU 0.7 with their own box), and for each
+    annotated person a `DensePoseDataRelative` (14 RLE part masks, 64-128
+    points with dp_I in 1..24 and U, V in [0, 1]), every other one flipped
+    through `DensePoseTransformData.synthetic()`.  The annotation is read
+    in each proposal's frame as detectron2 reads it: points (box-relative
+    [0, 1], those outside the proposal invalid), the coarse segmentation
+    at the 56x56 cell centres and the person mask at 28x28.  Returns
+    (proposals (2, 64, 4), matched gt boxes (128, 4), has_densepose (128,),
+    targets {name: tensor}), on the CPU."""
+    from straps_tpu_torch.perception.densepose_structures import (
+        MASK_SIZE, N_BODY_PARTS, DensePoseDataRelative, DensePoseTransformData, rle_encode)
+
+    rng = np.random.RandomState(seed)
+    n_img, per, n_gt = 2, TRAIN_ROIS_PER_IMAGE, TRAIN_GT_PER_IMAGE
+    wh = rng.uniform([0.2, 0.35], [0.4, 0.6], (n_img, n_gt, 2)) * frame_size
+    xy = rng.uniform(0.02, 1.0, (n_img, n_gt, 2)) * (frame_size * 0.98 - wh)
+    gt = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    yy, xx = np.mgrid[:MASK_SIZE, :MASK_SIZE]
+    anns, flip = [], DensePoseTransformData.synthetic()
+    for k in range(n_img * n_gt):
+        if k % n_gt == n_gt - 1:
+            anns.append(None)
+            continue
+        masks = []
+        for p in range(N_BODY_PARTS):
+            cy, cx = rng.uniform(40, 216, 2)
+            ry, rx = rng.uniform(12, 60, 2)
+            m = (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1).astype(np.uint8)
+            masks.append(rle_encode(m) if p % 3 else [])
+        n = rng.randint(64, TRAIN_POINTS + 1)
+        data = DensePoseDataRelative({
+            "dp_x": rng.uniform(0, MASK_SIZE, n), "dp_y": rng.uniform(0, MASK_SIZE, n),
+            "dp_I": rng.randint(1, 25, n), "dp_U": rng.uniform(0, 1, n),
+            "dp_V": rng.uniform(0, 1, n), "dp_masks": masks})
+        if k % 2:
+            data.apply_hflip(flip)
+        anns.append(data)
+    R = n_img * per
+    match = np.arange(R) // per * n_gt + np.arange(R) % n_gt
+    gt_flat = gt.reshape(-1, 4)[match]
+    size = np.tile(gt_flat[:, 2:] - gt_flat[:, :2], 2)
+    props = gt_flat + rng.normal(0, 1, (R, 4)) * size * rng.choice([0.02, 0.05, 0.12], (R, 1))
+    props = np.clip(props, 0, frame_size - 1).astype(np.float32)
+    props[:, 2:] = np.maximum(props[:, 2:], props[:, :2] + 4)
+    P = TRAIN_POINTS
+    t = {"gt_segm": np.zeros((R, 56, 56), np.int64), "gt_mask28": np.zeros((R, 28, 28), np.float32),
+         "gt_points01": np.zeros((R, P, 2), np.float32), "gt_part": np.zeros((R, P), np.int64),
+         "gt_u": np.zeros((R, P), np.float32), "gt_v": np.zeros((R, P), np.float32),
+         "point_valid": np.zeros((R, P), bool)}
+    for r in range(R):
+        data = anns[match[r]]
+        if data is None:
+            continue
+        g, b = gt_flat[r], props[r]
+        # Annotation points: GT-box grid (0..256) -> image -> proposal [0, 1].
+        px = g[0] + data.x / MASK_SIZE * (g[2] - g[0])
+        py = g[1] + data.y / MASK_SIZE * (g[3] - g[1])
+        p01 = np.stack([(px - b[0]) / (b[2] - b[0]), (py - b[1]) / (b[3] - b[1])], -1)
+        n = len(p01)
+        t["gt_points01"][r, :n] = p01
+        t["point_valid"][r, :n] = ((p01 >= 0) & (p01 < 1)).all(-1)
+        t["gt_part"][r, :n], t["gt_u"][r, :n], t["gt_v"][r, :n] = data.i, data.u, data.v
+        for side, key in ((56, "gt_segm"), (28, "gt_mask28")):
+            c = (np.arange(side) + 0.5) / side
+            gx = ((b[0] + c * (b[2] - b[0]) - g[0]) / (g[2] - g[0]) * MASK_SIZE).astype(np.int64)
+            gy = ((b[1] + c * (b[3] - b[1]) - g[1]) / (g[3] - g[1]) * MASK_SIZE).astype(np.int64)
+            inside = ((gy >= 0) & (gy < MASK_SIZE))[:, None] & ((gx >= 0) & (gx < MASK_SIZE))[None]
+            seg = np.where(inside, data.segm[gy.clip(0, MASK_SIZE - 1)][:, gx.clip(0, MASK_SIZE - 1)],
+                           0)
+            t[key][r] = seg if key == "gt_segm" else (seg > 0)
+    has_dp = np.asarray([anns[m] is not None for m in match])
+    return (torch.as_tensor(props).view(n_img, per, 4), torch.as_tensor(gt_flat),
+            torch.as_tensor(has_dp), {k: torch.as_tensor(v) for k, v in t.items()})
+
+
+def flax_deeplab_tree(state):
+    """The JAX `DensePoseDeepLabHead`'s flax variables for a port head's
+    state dict, written from numpy (convolutions OIHW -> HWIO, GroupNorm
+    weight -> scale), under the DensePose-RCNN's `densepose_head` scope."""
+    tree = {}
+    for name, v in state.items():
+        module, leaf = name.rsplit(".", 1)
+        if module in FLAX_DEEPLAB:
+            path = FLAX_DEEPLAB[module].split("/")
+        elif module.endswith(".norm"):
+            path = ["gn" + module.split(".")[0][len("body_conv_fcn"):]]
+        else:
+            path = [module]
+        a = v.detach().cpu().numpy()
+        if a.ndim == 4:
+            leaf, a = "kernel", a.transpose(2, 3, 1, 0)
+        elif leaf == "weight":
+            leaf = "scale"
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return {"params": {"densepose_head": tree}}
+
+
+# The NonLocal block's phi bias has a zero gradient in exact arithmetic:
+# it shifts every key by the same vector, and the softmax over the keys
+# ignores a shift a query's logits share.  Its computed gradient is
+# rounding on both devices, so it is held against the scale of its
+# weight's gradient instead of its own.
+ZERO_GRADIENT_OF = {"NLBlock.phi.0.bias": "NLBlock.phi.0.weight"}
+
+
+def _grad_report(named_k, named_c):
+    """Each parameter's gradient on the card against the CPU's, as a share
+    of the CPU gradient's largest value (for `ZERO_GRADIENT_OF`, of its
+    weight's).  Returns (worst share, its name)."""
+    grads_c = {name: p.grad for name, p in named_c}
+    worst, worst_name = 0.0, ""
+    for name, pk in named_k:
+        scale = float(grads_c[ZERO_GRADIENT_OF.get(name, name)].abs().max())
+        d = float((pk.grad.cpu() - grads_c[name]).abs().max())
+        share = d / scale if scale > 0 else (0.0 if d == 0 else float("inf"))
+        if share > worst:
+            worst, worst_name = share, name
+    return worst, worst_name
+
+
+def detector_training_side(card, pkls, frames):
+    """Phase 4k.  (a) DensePose: the DensePose-RCNN R101-FPN trunk at
+    800x800 on the 2 frames, 128 training ROIs through
+    `densepose_data_filter`, the legacy 14x14 pooler (ratio 2), the DeepLab
+    head (conv_dim 512, 8 stacked convs, ASPP (6, 12, 56), NonLocal on, its
+    GroupNorm randomised so that the block is exercised), the predictor to
+    56x56, `densepose_losses` and the backward to the head's and the
+    predictor's parameters, on the card and on the CPU from the card's
+    pooled features (the head runs over all 128 ROIs; the filtered ones
+    reach no loss term, so the gradients are the filtered batch's); times in
+    float32 and under bfloat16 autocast.  (b) PointRend: the PointRend-RCNN
+    P2 features, the coarse head at 7x7 on the 128 ROIs, 196 importance
+    points (x3, 0.75) drawn on the card, the point head, `mask_point_loss`
+    against 28x28 masks and the backward; the CPU given the card's draws.
+    (c) The DeepLab head's state through a detectron2 pickle and through a
+    flax tree.  Raises on any failure; returns the phase's report lines."""
+    import copy
+
+    from straps_tpu_torch.perception import densepose as TD
+    from straps_tpu_torch.perception import pointrend as TPR
+    from straps_tpu_torch.perception.convert_d2 import (
+        flax_detector_to_torch_state_dict, load_d2_pkl, load_detector_state, save_d2_pkl)
+    from straps_tpu_torch.perception.frontend import pil_bilinear_resize_u8
+    from straps_tpu_torch.perception.heads import pooled_box_features
+    from straps_tpu_torch.perception.ops import pairwise_iou, roi_align
+    from straps_tpu_torch.perception.rcnn import normalise_image_device
+
+    dev = torch.device("cuda")
+    lines = []
+    x = normalise_image_device(pil_bilinear_resize_u8(frames.to(dev), DET_TEST, DET_TEST))
+    props, gt_boxes, has_dp, targets = synthetic_training_targets(DET_TEST)
+    R = props.shape[0] * props.shape[1]
+    keep = TD.densepose_data_filter(props.view(-1, 4).to(dev), gt_boxes.to(dev), has_dp.to(dev),
+                                    torch.ones(R, dtype=torch.bool, device=dev))
+    iou = pairwise_iou(props.view(-1, 1, 4), gt_boxes[:, None])[:, 0, 0]
+    keep_cpu = TD.densepose_data_filter(props.view(-1, 4), gt_boxes, has_dp,
+                                        torch.ones(R, dtype=torch.bool))
+    if not torch.equal(keep.cpu(), keep_cpu) or keep_cpu.all() or not keep_cpu.any():
+        raise AssertionError("densepose_data_filter: card and CPU differ, or it keeps all or none")
+    n_keep = int(keep_cpu.sum())
+
+    # (a) DensePose.
+    model = load_detector("densepose", pkls[2], dev)
+    with torch.inference_mode():
+        nhwc = model.trunk(x)[0]
+        roi = pooled_box_features(nhwc, props.to(dev), 14, aligned=False, sampling_ratio=2)
+    roi = roi.clone()
+    del model, nhwc
+    torch.manual_seed(12)
+    head = TD.DensePoseDeepLabHead(256, 512, 8, use_nonlocal=True)
+    with torch.no_grad():
+        head.NLBlock.W[1].weight.uniform_(0.5, 1.5)
+        head.NLBlock.W[1].bias.uniform_(-0.2, 0.2)
+    predictor = TD.DensePosePredictor(512)
+    sel = keep_cpu.nonzero().flatten()
+    tgt = {k: v[sel] for k, v in targets.items()
+           if k in ("gt_segm", "gt_points01", "gt_part", "gt_u", "gt_v", "point_valid")}
+
+    def dp_run(d, h, p, feats):
+        out = h(feats)
+        s, i, u, v = p(out)
+        idx = sel.to(d)
+        losses = TD.densepose_losses(s[idx], i[idx], u[idx], v[idx],
+                                     **{k: t.to(d) for k, t in tgt.items()})
+        return out, losses
+
+    runs = {}
+    for tag, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        h, p = copy.deepcopy(head).to(d).train(), copy.deepcopy(predictor).to(d).train()
+        t0 = time.perf_counter()
+        out, losses = dp_run(d, h, p, roi.to(d))
+        losses["total"].backward()
+        torch.cuda.synchronize()
+        runs[tag] = (h, p, out.detach().cpu(), {k: v.item() for k, v in losses.items()},
+                     time.perf_counter() - t0)
+    (hk, pk, ok, lk, _), (hc, pc, oc, lc, cpu_s) = runs["card"], runs["cpu"]
+    d_out = float((ok - oc).abs().max() / oc.abs().max())
+    d_loss = max(abs(lk[k] - lc[k]) / abs(lc[k]) for k in lc)
+    gates = int(((ok > 0) != (oc > 0)).sum())
+    g_worst, g_name = _grad_report(list(hk.named_parameters()) + list(pk.named_parameters()),
+                                   list(hc.named_parameters()) + list(pc.named_parameters()))
+    lines.append(
+        f"reference check, DensePose training side at R101-FPN width on {card}: the trunk at "
+        f"{DET_TEST}x{DET_TEST} on {frames.shape[0]} images, {R} ROIs, {n_keep} kept by "
+        f"densepose_data_filter (IoU with their own box {float(iou.min()):.3f}-"
+        f"{float(iou.max()):.3f}; card and CPU filters equal), "
+        f"{int(tgt['point_valid'].sum())} valid points; DeepLab head (512, 8 convs, ASPP "
+        f"(6, 12, 56), NonLocal) + predictor + losses + backward, card vs CPU: head output "
+        f"{d_out:.3e} of its largest (bound 1e-4), {gates} of {ok.numel()} output gates differ; "
+        f"losses " + ", ".join(f"{k} {lk[k]:.6f}" for k in lk)
+        + f", worst {d_loss:.3e} relative (bound 1e-5); gradients worst {g_worst:.3e} of the "
+        f"tensor's largest ({g_name}; bound 1e-3; NLBlock.phi.0.bias, whose exact gradient is 0, "
+        f"against phi's weight's); the CPU run {cpu_s:.1f} s")
+    if d_out > 1e-4 or d_loss > 1e-5 or g_worst > 1e-3:
+        raise AssertionError(lines[-1])
+
+    # Times on the card, medians of 5 by CUDA events, float32 then bfloat16
+    # autocast; the rate-56 ASPP branch alone.
+    h, p = hk, pk
+    sel, tgt = sel.to(dev), {k: v.to(dev) for k, v in tgt.items()}
+
+    def fwd():
+        return dp_run(dev, h, p, roi)[1]["total"]
+
+    def fwd_bwd():
+        fwd().backward()
+
+    def med(fn, autocast):
+        ts = []
+        for i in range(6):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+                start.record()
+                fn()
+                end.record()
+            torch.cuda.synchronize()
+            if i:
+                ts.append(start.elapsed_time(end))
+        return float(np.median(ts))
+
+    torch.cuda.reset_peak_memory_stats()
+    times = {(name, ac): med(fn, ac) for ac in (False, True)
+             for name, fn in (("forward", lambda: fwd().item()), ("forward + backward",
+                                                                  fwd_bwd))}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    branch = h.ASPP.convs[3]
+    with torch.no_grad():
+        rate56_ms = cuda_ms(lambda: branch(roi), 20)
+    flops = deeplab_forward_flops(R)
+    lines.append(
+        f"times on {card}: DeepLab head + predictor + losses on {R} ROIs (14x14 x 256 in), "
+        f"medians of 5 by CUDA events: float32 forward {times[('forward', False)]:.3f} ms, "
+        f"forward + backward {times[('forward + backward', False)]:.3f} ms; bfloat16 autocast "
+        f"forward {times[('forward', True)]:.3f} ms, forward + backward "
+        f"{times[('forward + backward', True)]:.3f} ms; peak device memory {peak:.2f} GiB; "
+        f"{flops / 1e12:.3f} TFLOP forward by count ({flops / 1e9 / times[('forward', False)]:.1f} "
+        f"TFLOP/s float32); the rate-56 ASPP branch alone (conv + GroupNorm + ReLU, no grad) "
+        f"{rate56_ms:.3f} ms")
+    del runs, hk, pk, hc, pc
+
+    # (b) PointRend.
+    model = load_detector("pointrend", pkls[1], dev)
+    with torch.inference_mode():
+        p2 = model.trunk(x)[0][0]
+        mask_roi = roi_align(p2, props.to(dev), 1.0 / 4, 14, sampling_ratio=1, mode="zeros")
+    p2, mask_roi = p2.clone(), mask_roi.clone()
+    coarse_in = mask_roi.reshape(R, 14, 14, -1).permute(0, 3, 1, 2).contiguous()
+    coarse_head0, point_head0 = model.roi_heads.mask_coarse_head, model.roi_heads.mask_point_head
+    del model
+    boxes = props.view(-1, 4)
+    image_index = torch.arange(props.shape[0]).repeat_interleave(props.shape[1])
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cand, uniform = TPR.importance_sample_draws(R, 196, 3.0, 0.75, generator=gen)
+    n_unc = int(0.75 * 196)
+
+    def pr_run(d, ch, ph, chosen=None):
+        coarse = ch(coarse_in.to(d))
+        with torch.no_grad():
+            pts = TPR.select_importance_points(coarse, cand.to(d), uniform.to(d), n_unc)
+        if chosen is not None:
+            pts = torch.where(chosen[:, None, None].to(d), pts, chosen_pts.to(d))
+        fine = TPR.sample_fine_features(p2.to(d), boxes.to(d), pts, image_index.to(d))
+        coarse_pt = TPR.sample_mask_at_points(coarse.permute(0, 2, 3, 1), pts)
+        logits = ph(fine.transpose(1, 2), coarse_pt.transpose(1, 2))[:, 0]
+        loss = TPR.mask_point_loss(logits, targets["gt_mask28"].to(d), pts)
+        return coarse, pts, loss
+
+    prs = {}
+    for tag, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        ch = copy.deepcopy(coarse_head0).to(d).train().requires_grad_(True)
+        ph = copy.deepcopy(point_head0).to(d).train().requires_grad_(True)
+        if tag == "cpu":
+            # Where a cut is within 1e-5 the CPU takes the card's points.
+            with torch.no_grad():
+                coarse_c = ch(coarse_in.cpu())
+            unc = TPR.uncertainty(TPR.sample_mask_at_points(
+                coarse_c[:, :1].permute(0, 2, 3, 1), cand.cpu())[..., 0])
+            ordered = torch.sort(unc, dim=-1, descending=True).values
+            gap = ordered[:, n_unc - 1] - ordered[:, n_unc]
+            clear = gap > 1e-5
+            chosen_pts = prs["card"][1]
+            coarse, pts, loss = pr_run(d, ch, ph, chosen=clear)
+        else:
+            coarse, pts, loss = pr_run(d, ch, ph)
+        loss.backward()
+        prs[tag] = (coarse.detach().cpu(), pts.detach().cpu(), loss.item(), ch, ph)
+    (ck, ptk, lk, chk, phk), (cc, ptc, lc, chc, phc) = prs["card"], prs["cpu"]
+
+    def as_sets(p):
+        key = p[:, :n_unc, 0] * 4 + p[:, :n_unc, 1]
+        return torch.sort(key, dim=-1).values
+
+    same_sets = (as_sets(ptk) == as_sets(ptc)).all(-1)
+    if not bool(same_sets[clear].all()):
+        raise AssertionError("importance points differ where the top-k cut clears 1e-5")
+    d_coarse = float((ck - cc).abs().max() / cc.abs().max())
+    d_loss = abs(lk - lc) / abs(lc)
+    g_worst, g_name = _grad_report(list(chk.named_parameters()) + list(phk.named_parameters()),
+                                   list(chc.named_parameters()) + list(phc.named_parameters()))
+    lines.append(
+        f"reference check, PointRend training side on {card}: P2 of the R50-FPN trunk at "
+        f"{DET_TEST}x{DET_TEST}, coarse head at 7x7 on {R} ROIs, {196} importance points "
+        f"(x3, 0.75) drawn on the card, point head, mask_point_loss against 28x28 masks, "
+        f"backward; card vs CPU given the card's draws: coarse logits {d_coarse:.3e} of the "
+        f"largest; the top-k cut clears 1e-5 on {int(clear.sum())} of {R} ROIs (smallest gap "
+        f"{float(gap.min()):.3e}), chosen point sets equal on all of those ({int(same_sets.sum())} "
+        f"in all, {int((ptk == ptc).all(-1).all(-1).sum())} in the same order); loss "
+        f"{lk:.6f} vs {lc:.6f}, {d_loss:.3e} relative (bound 1e-5); gradients worst "
+        f"{g_worst:.3e} of the tensor's largest ({g_name}; bound 1e-4)")
+    if d_loss > 1e-5 or g_worst > 1e-4:
+        raise AssertionError(lines[-1])
+    def pr_step():
+        pr_run(dev, chk, phk)[2].backward()
+    lines.append(f"times on {card}: PointRend coarse head + importance points + point head + "
+                 f"loss + backward on {R} ROIs: {cuda_ms(pr_step, 5):.3f} ms (mean of 5)")
+
+    # (c) Converters: the seeded DeepLab head (the reference's init: the NL
+    # GroupNorm at 0) through a detectron2 pickle and through a flax tree.
+    torch.manual_seed(13)
+    seeded = TD.DensePoseDeepLabHead(256, 512, 8, use_nonlocal=True)
+    state = seeded.state_dict()
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "densepose_rcnn_R_101_FPN_DL_s1x.pkl")
+        save_d2_pkl(path, {DEEPLAB_PREFIX + k: v for k, v in state.items()})
+        loaded = load_d2_pkl(path)
+    with torch.device("meta"):
+        fresh = TD.DensePoseDeepLabHead(256, 512, 8, use_nonlocal=True)
+    load_detector_state(fresh, {k[len(DEEPLAB_PREFIX):]: v for k, v in loaded.items()})
+    from_flax = flax_detector_to_torch_state_dict(flax_deeplab_tree(state))
+    same_pkl = all(torch.equal(fresh.state_dict()[k], state[k]) for k in state)
+    same_flax = (sorted(from_flax) == sorted(DEEPLAB_PREFIX + k for k in state)
+                 and all(np.array_equal(from_flax[DEEPLAB_PREFIX + k], state[k].numpy())
+                         for k in state))
+    lines.append(f"converters: a DeepLab DensePose pickle of {len(loaded)} tensors loaded with "
+                 f"strict=True, equal {same_pkl}; a flax DeepLab tree of "
+                 f"{len(from_flax)} tensors through flax_detector_to_torch_state_dict, equal "
+                 f"{same_flax}")
+    if not (same_pkl and same_flax and len(loaded) == len(state)):
+        raise AssertionError(lines[-1])
+    return lines
+
+
+def deeplab_forward_flops(R, cin=256, dim=512, convs=8, side=14):
+    """Multiply-adds x 2 of the DeepLab head + predictor forward on R ROIs:
+    ASPP's 1x1, three 3x3 and pooled branches and its projection, the
+    NonLocal block's projections and products, the stacked 3x3 convs, and
+    the predictor's four 4x4 stride-2 deconvolutions (15 + 3 x 25 channels)."""
+    hw = side * side
+    inter = cin // 2
+    aspp = hw * cin * cin * (1 + 3 * 9) + cin * cin + hw * 5 * cin * cin
+    nonlocal_ = 3 * hw * cin * inter + 2 * hw * (hw // 4) * inter + hw * inter * cin
+    stacked = hw * 9 * dim * (cin + (convs - 1) * dim)
+    predictor = hw * dim * (15 + 75) * 16
+    return 2.0 * R * (aspp + nonlocal_ + stacked + predictor)
+
+
 def main() -> int:
     t_main = time.perf_counter()
     # 1. Device.
@@ -1858,7 +2281,10 @@ def main() -> int:
     # 640x480 verts_vis figure and joint-index text for every image.
     mixed_dir = os.path.join(tmp.name, "mixed")
     os.makedirs(mixed_dir)
-    for d, files in ((img_dir, os.listdir(img_dir)), (jpeg_dir, jpeg_expected)):
+    # The predict reads the cv2-written fixtures; the small CMYK one is held
+    # to its hash above.
+    mixed_jpegs = [f for f in jpeg_expected if not f.startswith("cmyk")]
+    for d, files in ((img_dir, os.listdir(img_dir)), (jpeg_dir, mixed_jpegs)):
         for f in files:
             os.symlink(os.path.join(d, f), os.path.join(mixed_dir, f))
     mixed_out = os.path.join(tmp.name, "predict_mixed")
@@ -1868,12 +2294,12 @@ def main() -> int:
         pipe, run_predict, mixed_argv + ["--out-dir", mixed_out])
     jpeg_launches = CR.faceid_raster_kernel.launches
     n_mixed = len(pred_mixed["names"])
-    print(f"slice: predict of {n_mixed} images ({n_img} PNG + {len(jpeg_expected)} JPEG) through "
+    print(f"slice: predict of {n_mixed} images ({n_img} PNG + {len(mixed_jpegs)} JPEG) through "
           f"Keypoint-RCNN + PointRend R50-FPN at {DET_TEST}x{DET_TEST}, frame {DET_FRAME}, "
           f"first run: {mixed_s:.3f} s wall, face-id kernel launches {jpeg_launches} (rend 1 + "
           f"reposed 1); of the wall: " + ", ".join(f"{k} {v:.3f} s"
                                                     for k, v in mixed_stage_s.items()))
-    if jpeg_launches != 2 or n_mixed != n_img + len(jpeg_expected):
+    if jpeg_launches != 2 or n_mixed != n_img + len(mixed_jpegs):
         raise AssertionError(f"mixed predict: {n_mixed} images, {jpeg_launches} face-id launches")
     check_image_predict("PointRend (PNG + JPEG)", pred_mixed, mixed_out, mixed_det, assets,
                         ckpt_pred, run_predict, faceid_errs)
@@ -2023,6 +2449,26 @@ def main() -> int:
     if gate_s > 60.0:
         raise AssertionError(f"the parity gate phase took {gate_s:.1f} s, over 60 s")
 
+    # 4k. The detector training side at R101-FPN width: DensePose's DeepLab
+    # head, losses and data filter, PointRend's point sampling and loss,
+    # card against CPU, and the DeepLab converters.  It launches neither
+    # kernel.
+    torch.cuda.synchronize()
+    t_train = time.perf_counter()
+    reset_launches()
+    for line in detector_training_side(card, pkls, frames):
+        print(line)
+    torch.cuda.synchronize()
+    train_side_s = time.perf_counter() - t_train
+    train_side_launches = (CR.packed_raster_kernel.launches, CR.faceid_raster_kernel.launches)
+    print(f"slice: detector training side phase {train_side_s:.1f} s wall (bound 40 s); kernel "
+          f"launches (packed, face-id) {train_side_launches}")
+    if train_side_launches != (0, 0):
+        raise AssertionError("the detector training side launched a rasteriser kernel")
+    if train_side_s > 40.0:
+        raise AssertionError(f"the detector training side took {train_side_s:.1f} s, over 40 s")
+    torch.cuda.empty_cache()
+
     # 5. Times.
     flat, bounds, attr = smpl_kernel_inputs(assets, 256, 64, seed=5)
     kernel_ms = cuda_ms(lambda: CR.packed_raster_kernel(flat, bounds, attr, 256, 256), 200)
@@ -2137,7 +2583,7 @@ def main() -> int:
                               silhouette_checkpoint=pkls[1], out_dir=mixed_out)
     mixed_warm_s = median_s(lambda: predict_3d(mixed_cfg, device="cuda"))
     print(f"times on {card}: warm predict of {n_mixed} images ({n_img} PNG + "
-          f"{len(jpeg_expected)} JPEG) through both detectors at {DET_TEST}x{DET_TEST}, "
+          f"{len(mixed_jpegs)} JPEG) through both detectors at {DET_TEST}x{DET_TEST}, "
           f"every vis file written: {mixed_warm_s:.3f} s wall, median of 5 "
           f"({n_mixed / mixed_warm_s:.2f} images/s)")
 

@@ -9,8 +9,8 @@
 With `--silh-from cached`, `--input` holds `<name>_silhouette.npy` +
 `<name>_joints2D.npy` per image; with `--silh-from pointrend` or
 `densepose`, `.png` and `.jpg` images (JPEGs decoded as cv2.imread decodes
-them; arithmetic-coded, lossless, hierarchical, 12-bit and CMYK JPEGs are
-refused by name), which go through Keypoint-RCNN R50-FPN and
+them, CMYK and YCCK included; arithmetic-coded, lossless, hierarchical and
+12-bit JPEGs are refused by name), which go through Keypoint-RCNN R50-FPN and
 PointRend R50-FPN or DensePose-RCNN R101-FPN (detectron2 pickles).  Runs on
 CUDA unless `--device cpu` is given.
 """

@@ -2,7 +2,7 @@
 // bit to libjpeg-turbo's defaults (what `cv2.imread` decodes with).
 //
 // Reads baseline and extended sequential Huffman (SOF0, SOF1) and
-// progressive Huffman (SOF2) JPEGs of 8-bit samples with 1 or 3
+// progressive Huffman (SOF2) JPEGs of 8-bit samples with 1, 3 or 4
 // components, any sampling factors whose ratios to the largest are
 // integers, restart intervals, and images of any size.  Every scan is
 // decoded into one coefficient buffer per component, then each block is
@@ -11,14 +11,18 @@
 // fancy upsampling does (the triangle filters of h2v1, h2v2 and h1v2 with
 // their alternating rounding biases, replication for other ratios and for
 // planes of 2 columns or fewer), and YCbCr is converted to RGB with the
-// 16-bit fixed-point tables of jdcolor.c.
+// 16-bit fixed-point tables of jdcolor.c.  Four components are CMYK as
+// stored (Adobe transform 0, or no Adobe marker) or YCCK (any other
+// transform), which libjpeg turns into CMYK with the same tables; cv2 then
+// converts CMYK to BGR with its own integer formula.  A component that no
+// scan carries keeps zero coefficients (mid-grey), as in libjpeg's buffer.
 //
 // A file that ends inside its entropy-coded data decodes as libjpeg does:
 // the bits past the end read as zeros for the MCU in progress, and the
 // MCUs after it keep the coefficients they have (zero for a sequential
 // file) until a restart marker.  Arithmetic coding, lossless and
-// hierarchical frames, precisions other than 8 bits and 2 or 4 components
-// are refused with a message naming the marker.
+// hierarchical frames, precisions other than 8 bits and 2 components are
+// refused with a message naming the marker.
 //
 // Plain C interface for ctypes (straps_tpu_torch/utils/jpeg.py).
 
@@ -103,6 +107,7 @@ struct Component {
   std::vector<int16_t> coef;     // bh * bw * 64
   int dc_tbl = 0, ac_tbl = 0;
   int last_dc = 0;
+  bool scanned = false;
   int coef_bits[64];  // progressive: Al of the last scan of each coefficient, -1 before any
   int16_t* block(int by, int bx) {
     return coef.data() + (static_cast<size_t>(by) * bw + bx) * 64;
@@ -243,7 +248,7 @@ struct Decoder {
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
-  Component comp[3];
+  Component comp[4];
   int scans = 0;
 
   Decoder(const uint8_t* d, size_t n) : data(d), len(n) {}
@@ -289,9 +294,9 @@ struct Decoder {
     height = u16(p + 1);
     width = u16(p + 3);
     ncomp = p[5];
-    if (ncomp != 1 && ncomp != 3)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
       fail(std::to_string(ncomp) + " components in SOF" + std::to_string(marker - 0xC0) +
-           " (only greyscale and YCbCr/RGB are read)");
+           " (only greyscale, YCbCr/RGB and CMYK/YCCK are read)");
     if (n < 6 + 3 * ncomp) fail("short SOF segment");
     if (height == 0) fail("DNL line counts (height 0 in the frame header) are not read");
     if (width == 0) fail("width 0 in the frame header");
@@ -392,6 +397,7 @@ struct Decoder {
       if (need_dc && !dc[sc[i]->dc_tbl].defined) fail("undefined DC Huffman table");
       if (need_ac && !ac[sc[i]->ac_tbl].defined) fail("undefined AC Huffman table");
       sc[i]->last_dc = 0;
+      sc[i]->scanned = true;
       for (int k = ss; k <= se; ++k) sc[i]->coef_bits[k] = al;
     }
     ++scans;
@@ -733,7 +739,9 @@ struct Decoder {
   // libjpeg's fancy upsampling does.
   std::vector<uint8_t> plane(int ci) {
     Component& c = comp[ci];
-    if (!qt_defined[c.tq]) fail("undefined quantisation table");
+    // A component no scan carries has zero coefficients: mid-grey whatever
+    // its table.
+    if (c.scanned && !qt_defined[c.tq]) fail("undefined quantisation table");
     int pw = c.wblocks * 8, ph = c.hblocks * 8;
     std::vector<uint8_t> s(static_cast<size_t>(pw) * ph);
     for (int by = 0; by < c.hblocks; ++by)
@@ -829,11 +837,33 @@ struct Decoder {
     auto clamp = [](int v) -> uint8_t {
       return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
     };
+    if (ncomp == 3) {
+      for (size_t i = 0; i < n; ++i) {
+        int y = p0[i], cb = p1[i], cr = p2[i];
+        rgb[3 * i] = clamp(y + cr_r[cr]);
+        rgb[3 * i + 1] = clamp(y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> 16));
+        rgb[3 * i + 2] = clamp(y + cb_b[cb]);
+      }
+      return;
+    }
+    // Four components.  libjpeg reads CMYK as stored under Adobe transform
+    // 0 or without an Adobe marker, and YCCK under any other transform
+    // (jdcolor.c ycck_cmyk_convert: 255 minus the YCbCr->RGB result, K
+    // unchanged).  cv2 then converts CMYK to BGR: each of C, M, Y becomes
+    // k - ((255 - x) * k >> 8), and R, G, B are those of C, M, Y.
+    std::vector<uint8_t> p3 = plane(3);
+    bool ycck = saw_adobe && adobe_transform != 0;
     for (size_t i = 0; i < n; ++i) {
-      int y = p0[i], cb = p1[i], cr = p2[i];
-      rgb[3 * i] = clamp(y + cr_r[cr]);
-      rgb[3 * i + 1] = clamp(y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> 16));
-      rgb[3 * i + 2] = clamp(y + cb_b[cb]);
+      int c = p0[i], m = p1[i], yv = p2[i], k = p3[i];
+      if (ycck) {
+        int y = c, cb = m, cr = yv;
+        c = clamp(255 - (y + cr_r[cr]));
+        m = clamp(255 - (y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> 16)));
+        yv = clamp(255 - (y + cb_b[cb]));
+      }
+      rgb[3 * i] = static_cast<uint8_t>(k - ((255 - c) * k >> 8));
+      rgb[3 * i + 1] = static_cast<uint8_t>(k - ((255 - m) * k >> 8));
+      rgb[3 * i + 2] = static_cast<uint8_t>(k - ((255 - yv) * k >> 8));
     }
   }
 };

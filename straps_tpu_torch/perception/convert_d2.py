@@ -19,6 +19,14 @@ from torch import nn
 # Flax scope -> detectron2 module name, for the scopes without an index.
 _RPN = {"conv": "conv", "objectness": "objectness_logits", "anchor_deltas": "anchor_deltas"}
 _DECONV_NAMES = {"score_lowres", "ann_index_lowres", "index_uv_lowres", "u_lowres", "v_lowres"}
+# The DeepLab DensePose head's flax scopes -> detectron2's names (the
+# inverse of the JAX `_map_densepose_head`).
+_ASPP = {"conv1x1": "0.0", "gn1x1": "0.1", "atrous1": "1.0", "gn_atrous1": "1.1",
+         "atrous2": "2.0", "gn_atrous2": "2.1", "atrous3": "3.0", "gn_atrous3": "3.1",
+         "pool_conv": "4.1", "gn_pool": "4.2"}
+_NONLOCAL = {"theta": "theta", "phi": "phi.0", "g": "g.0", "W": "W.0", "gn_w": "W.1"}
+_DEEPLAB = {"aspp": lambda s: "ASPP.project.0" if s == "project" else f"ASPP.convs.{_ASPP[s]}",
+            "nonlocal": lambda s: f"NLBlock.{_NONLOCAL[s]}"}
 # FCs over a flattened (C, 7, 7) map: flax flattens (7, 7, C).
 _FLATTEN_FC = {"roi_heads.box_head.fc1": 7, "roi_heads.mask_coarse_head.coarse_mask_fc1": 7}
 
@@ -82,10 +90,10 @@ def _d2_module(path: Tuple[str, ...]) -> str:
     if path[:2] == ("trunk", "box_head"):
         scope = "box_head" if path[2] in ("fc1", "fc2") else "box_predictor"
         return f"roi_heads.{scope}.{path[2]}"
-    if path[0] == "densepose_head" and not path[1].startswith("body_conv_fcn"):
-        raise NotImplementedError(
-            f"DensePose DeepLab head scope {'/'.join(path)}: the port has the V1ConvX head "
-            f"only (DensePoseDeepLabHead, ASPP and NonLocalBlock2D are not ported)")
+    if path[0] == "densepose_head" and path[1] in ("aspp", "nonlocal"):
+        return "roi_heads.densepose_head." + _DEEPLAB[path[1]](path[2])
+    if path[0] == "densepose_head" and re.fullmatch(r"gn\d+", path[1]):
+        return f"roi_heads.densepose_head.body_conv_fcn{path[1][2:]}.norm"
     scope = {"keypoint_head": "keypoint_head", "coarse_head": "mask_coarse_head",
              "point_head": "mask_point_head", "densepose_head": "densepose_head",
              "densepose_predictor": "densepose_predictor"}[path[0]]
@@ -102,14 +110,14 @@ def _leaves(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
 
 def flax_detector_to_torch_state_dict(variables) -> Dict[str, np.ndarray]:
     """The JAX `KeypointRCNN` / `PointRendRCNN` / `DensePoseRCNN` variables
-    (numpy arrays; the V1ConvX DensePose head, a DeepLab scope raises) ->
+    (numpy arrays; the V1ConvX or the DeepLab DensePose head) ->
     the port's state dict under detectron2's names: the inverse of the JAX
     package's `convert_d2_state`.  Convolutions HWIO -> OIHW, the keypoint
     and DensePose deconvolutions flipped back to torch's (in, out, kh, kw),
     dense (in, out) -> (out, in), the FCs over a flattened map permuted HWC
     -> CHW, the point head's dense layers -> conv1d (out, in, 1), BatchNorm
     scale, bias and statistics -> FrozenBatchNorm's weight, bias, running
-    mean and variance."""
+    mean and variance, GroupNorm scale and bias -> weight and bias."""
     out = {}
     for path, v in _leaves(variables["params"]):
         module, leaf = _d2_module(path[:-1]), path[-1]

@@ -3,7 +3,8 @@
 (`predict/predict_joints2D.py:5-30`, `predict_silhouette_pointrend.py:7-36`)
 and its keypoints or silhouette, selected in numpy on the host; Pillow's
 bilinear resize to the detectors' test size, on the device; the detectors
-run over a folder in chunks of images.
+run over a folder in chunks of images, or on one image
+(`predict_joints2d`, `predict_silhouette`).
 """
 
 from typing import Dict, Tuple
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from straps_tpu_torch.perception.rcnn import normalise_image_device
+from straps_tpu_torch.utils.device import resolve_device
 
 
 def get_largest_centred_box_index(boxes: np.ndarray, valid: np.ndarray,
@@ -174,3 +176,35 @@ def run_detector_batched(model, images_rgb: torch.Tensor, test_size=None,
         out = model(normalise_image_device(batch))
         outs.append({k: v.cpu().numpy() for k, v in out.items()})
     return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+
+def _run_one(image_rgb: np.ndarray, model, test_size, device) -> Dict[str, np.ndarray]:
+    """The detector on one (H, W, 3) uint8 RGB image, on `device` (the
+    model is moved there)."""
+    model.to(resolve_device(device))
+    return run_detector_batched(model, torch.as_tensor(np.asarray(image_rgb, np.uint8))[None],
+                                test_size)
+
+
+def predict_joints2d(image_rgb: np.ndarray, model, test_size=None,
+                     device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+    """One (H, W, 3) uint8 RGB image through a Keypoint-RCNN -> the (17, 3)
+    keypoints [x, y, score] of the largest roughly centred person (zeros
+    when nobody is found) and every detection's (D, 4) box (the reference's
+    `predict_joints2D` contract).  Boxes and keypoints are in the model's
+    `output_size` frame, else the network input's: the `test_size` square
+    when set, the image otherwise; the centred selection uses that frame."""
+    fw = fh = getattr(model, "output_size", 0) or test_size or 0
+    if not fw:
+        fh, fw = image_rgb.shape[:2]
+    out = _run_one(image_rgb, model, test_size, device)
+    return select_keypoints(out, 0, fw, fh), out["boxes"][0]
+
+
+def predict_silhouette(image_rgb: np.ndarray, model, test_size=None,
+                       device="cuda") -> np.ndarray:
+    """One (H, W, 3) uint8 RGB image through a PointRend-RCNN or a
+    DensePose-RCNN -> the (H', W') float32 binary silhouette of the largest
+    roughly centred instance, in the frame the model pastes its masks in;
+    zeros of that frame when nothing is found."""
+    return select_silhouette(_run_one(image_rgb, model, test_size, device), 0)[0]

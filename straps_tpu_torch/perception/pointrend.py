@@ -1,9 +1,10 @@
-"""PointRend mask refinement for inference (counterpart of
+"""PointRend mask refinement (counterpart of
 `straps_tpu/perception/pointrend.py`): the coarse 7x7 mask head, the point
 head (1x1 conv1d MLP re-reading the coarse logits at every layer), and the
 subdivision loop (5 steps of 2x upsampling + re-predicting the 28² most
 uncertain points), with detectron2's module names.  Batched over all ROIs
-of a batch of images; `image_index` says which image's P2 a ROI reads."""
+of a batch of images; `image_index` says which image's P2 a ROI reads.
+Training: the importance sampling of the points and the point loss."""
 
 import torch
 import torch.nn.functional as F
@@ -115,6 +116,71 @@ def subdivision_inference(point_head: StandardPointHead, coarse_logits: torch.Te
         mask = mask.reshape(R, 1, S * S).scatter(
             2, idx[:, None], new[:, channel:channel + 1]).view(R, 1, S, S)
     return mask
+
+
+def importance_sample_draws(num_rois: int, num_points: int = 14 * 14,
+                            oversample_ratio: float = 3.0,
+                            importance_sample_ratio: float = 0.75,
+                            generator: torch.Generator = None, device=None):
+    """The random draws of `importance_sample_points`: (R, int(num_points *
+    oversample_ratio), 2) candidates and the (R, num_points -
+    int(importance_sample_ratio * num_points), 2) uniform points that fill
+    the rest, uniform in [0, 1), from `generator` (on its device)."""
+    n_sampled = int(num_points * oversample_ratio)
+    n_rand = num_points - int(importance_sample_ratio * num_points)
+    device = generator.device if generator is not None else device
+    pts = torch.rand((num_rois, n_sampled, 2), generator=generator, device=device)
+    rand = torch.rand((num_rois, n_rand, 2), generator=generator, device=device)
+    return pts, rand
+
+
+def select_importance_points(coarse_logits: torch.Tensor, candidates: torch.Tensor,
+                             uniform: torch.Tensor, num_uncertain: int) -> torch.Tensor:
+    """Given the draws: the candidates most uncertain under the coarse
+    logits of class 0 (bilinear, zero padding; a stable order, equal
+    uncertainties in index order, as `jax.lax.top_k`), as many as the
+    importance share, then the uniform points.
+
+    Args:
+      coarse_logits: (R, K, S, S); candidates: (R, N, 2); uniform: (R, M, 2);
+        num_uncertain: how many candidates to keep.
+    Returns:
+      (R, num_uncertain + M, 2) points in [0, 1] box coordinates.
+    """
+    unc = uncertainty(sample_mask_at_points(coarse_logits[:, :1].permute(0, 2, 3, 1),
+                                            candidates)[..., 0])
+    _, idx = top_k_stable(unc, num_uncertain)
+    chosen = torch.gather(candidates, 1, idx[..., None].expand(-1, -1, 2))
+    return torch.cat([chosen, uniform], dim=1)
+
+
+def importance_sample_points(coarse_logits: torch.Tensor, num_points: int = 14 * 14,
+                             oversample_ratio: float = 3.0,
+                             importance_sample_ratio: float = 0.75,
+                             generator: torch.Generator = None) -> torch.Tensor:
+    """Train-time point selection (`PointRend/point_rend/point_features.py:
+    63-115` with the default config: 14² points, oversampling 3, importance
+    0.75): oversample uniform points, keep the most uncertain share under
+    the (R, K, S, S) coarse logits' class 0, fill the rest uniformly.
+    Draws from `generator` (on the logits' device when none is given);
+    `select_importance_points` is the selection given the draws.
+    Returns (R, num_points, 2) points in [0, 1] box coordinates."""
+    pts, rand = importance_sample_draws(coarse_logits.shape[0], num_points, oversample_ratio,
+                                        importance_sample_ratio, generator,
+                                        coarse_logits.device)
+    return select_importance_points(coarse_logits, pts, rand,
+                                    int(importance_sample_ratio * num_points))
+
+
+def mask_point_loss(point_logits: torch.Tensor, gt_masks01: torch.Tensor,
+                    points01: torch.Tensor) -> torch.Tensor:
+    """The point head's loss (`PointRend/point_rend/point_head.py:22-93`):
+    binary cross-entropy with logits (max(x, 0) - x z + log1p(exp(-|x|)))
+    between (R, P) point logits and the (R, S, S) ground-truth masks
+    sampled bilinearly (zero padding) at the same (R, P, 2) points, the
+    mean over all points."""
+    gt = sample_mask_at_points(gt_masks01[..., None].to(point_logits.dtype), points01)[..., 0]
+    return F.binary_cross_entropy_with_logits(point_logits, gt)
 
 
 def _paste_axis_rows(coord: torch.Tensor, S: int) -> torch.Tensor:

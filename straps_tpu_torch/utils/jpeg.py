@@ -4,17 +4,21 @@ bit for bit to cv2 built with libjpeg-turbo, without cv2.
 
 The decoding is host C++ (`csrc/jpeg_decode.cpp`, built with g++ at first
 use): baseline, extended sequential and progressive Huffman JPEGs of 8-bit
-samples, greyscale (replicated to three channels) or three-component,
-every sampling factor cv2 writes, restart intervals, any size; libjpeg's
-ISLOW inverse DCT, fancy upsampling and fixed-point YCbCr->RGB.  An APP1
+samples, greyscale (replicated to three channels), three-component or
+four-component, every sampling factor cv2 writes, restart intervals, any
+size; libjpeg's ISLOW inverse DCT, fancy upsampling and fixed-point
+YCbCr->RGB.  Four components are read as cv2 reads them: CMYK as stored
+(Adobe transform 0, as Pillow and Photoshop write it, or no Adobe marker)
+or YCCK (any other transform) turned into CMYK by libjpeg's tables, then
+cv2's integer CMYK->BGR conversion (R, G, B = k - ((255 - x) * k >> 8)
+for x = C, M, Y).  An APP1
 Exif orientation of 2-8 is then applied as `cv2.imread` does.  A file cut
 short inside its image data decodes as libjpeg does (the rest reads as
 zero bits, grey for a sequential file), as cv2 returns it.
 
 Refused with a ValueError naming the file and the marker: arithmetic
 coding (SOF9-SOF15, DAC), lossless (SOF3) and hierarchical (SOF5-SOF7,
-DHP) frames, precisions other than 8 bits, and 2 or 4 components (CMYK,
-YCCK).
+DHP) frames, precisions other than 8 bits, and 2 components.
 """
 
 import ctypes

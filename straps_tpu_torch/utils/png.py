@@ -80,9 +80,13 @@ def decode_png(path: str) -> np.ndarray:
     `cv2.imread(path, cv2.IMREAD_COLOR)` gives, in RGB order (alpha
     dropped, greyscale replicated)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png_bytes(f.read(), path)
+
+
+def decode_png_bytes(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """`decode_png` of the bytes of a PNG file; errors name `name`."""
     if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{name}: not a PNG file")
     pos, idat, header = 8, [], None
     while pos < len(data):
         n = struct.unpack(">I", data[pos:pos + 4])[0]
@@ -96,7 +100,7 @@ def decode_png(path: str) -> np.ndarray:
         pos += 12 + n
     w, h, depth, color, _, _, interlace = header
     if depth != 8 or color not in _CHANNELS or interlace:
-        raise ValueError(f"{path}: only 8-bit non-interlaced greyscale, RGB and RGBA PNGs "
+        raise ValueError(f"{name}: only 8-bit non-interlaced greyscale, RGB and RGBA PNGs "
                          f"are read (bit depth {depth}, colour type {color}, interlace "
                          f"{interlace})")
     bpp = _CHANNELS[color]

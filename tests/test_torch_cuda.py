@@ -10,7 +10,8 @@ the scenes of `tests/raster_scenes.py` (wide
 triangles across tile edges, ragged widths, near-horizontal edges, vertices
 on pixel centres, special planes, a coplanar tie across two chunks).
 One ResNet-50 train step with the silhouette task on the card against the
-CPU (`tests/torch_gates.py` replays the card's encoder selections).
+CPU (`tests/torch_gates.py` replays the card's encoder selections), and
+the DeepLab DensePose head with its losses and gradients.
 """
 
 import numpy as np
@@ -309,3 +310,53 @@ def test_resnet50_silhouette_train_step_on_card_matches_cpu(cuda):
         assert (stats_k[k] - v).abs().max() <= 1e-4 * v.abs().max(), k
     for k, g in grads_c.items():
         assert (grads_k[k] - g).abs().max() <= 2e-3 * g.abs().max(), k
+
+
+def test_deeplab_head_and_losses_on_card_match_cpu(cuda):
+    """The DeepLab DensePose head (NonLocal on, its GroupNorm randomised),
+    the predictor and `densepose_losses` with the backward on the card and
+    on the CPU: the head output within 1e-4 of its largest, each loss term
+    within 1e-5 relative, each parameter's gradient within 1e-3 of its
+    largest (phi's bias: of its weight's).  In float64: at float32 this
+    small head (8 ROIs, 2 convs) opens a few ReLU gates on one device only,
+    and the ASPP weights' gradients then miss 1e-3 of their largest;
+    `chip_smoke.py` phase 4k holds the full head in float32."""
+    import copy
+
+    from straps_tpu_torch.perception import densepose as TD
+    from straps_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")
+    g = torch.Generator().manual_seed(12)
+    torch.manual_seed(12)
+    head = TD.DensePoseDeepLabHead(256, 512, 2, use_nonlocal=True).double()
+    with torch.no_grad():
+        head.NLBlock.W[1].weight.uniform_(0.5, 1.5, generator=g)
+    predictor = TD.DensePosePredictor(512).double()
+    R, P = 8, 64
+    x = torch.randn(R, 256, 14, 14, generator=g, dtype=torch.float64)
+    targets = {"gt_segm": torch.randint(0, 15, (R, 56, 56), generator=g),
+               "gt_points01": torch.rand((R, P, 2), generator=g, dtype=torch.float64),
+               "gt_part": torch.randint(1, 25, (R, P), generator=g),
+               "gt_u": torch.rand((R, P), generator=g, dtype=torch.float64),
+               "gt_v": torch.rand((R, P), generator=g, dtype=torch.float64),
+               "point_valid": torch.rand((R, P), generator=g) > 0.2}
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        h, p = copy.deepcopy(head).to(dev), copy.deepcopy(predictor).to(dev)
+        out = h(x.to(dev))
+        losses = TD.densepose_losses(*p(out), **{k: t.to(dev) for k, t in targets.items()})
+        losses["total"].backward()
+        runs.append((out.detach().cpu(), {k: v.item() for k, v in losses.items()},
+                     {n: q.grad.cpu() for n, q in list(h.named_parameters())
+                      + list(p.named_parameters())}))
+    (ok, lk, gk), (oc, lc, gc) = runs
+    assert (ok - oc).abs().max() <= 1e-4 * oc.abs().max(), float((ok - oc).abs().max())
+    for k in lc:
+        assert abs(lk[k] - lc[k]) <= 1e-5 * abs(lc[k]), (k, lk[k], lc[k])
+    # phi's bias has a zero gradient in exact arithmetic (the softmax over
+    # the keys ignores a shift every key shares): held at its weight's scale.
+    scale_of = {"NLBlock.phi.0.bias": "NLBlock.phi.0.weight"}
+    shares = {n: float((gk[n] - gc[n]).abs().max() / gc[scale_of.get(n, n)].abs().max())
+              for n in gc}
+    assert max(shares.values()) <= 1e-3, sorted(shares.items(), key=lambda kv: -kv[1])[:4]

@@ -357,3 +357,62 @@ def test_jpg_inputs_are_refused(slice_inputs, tmp_path, monkeypatch):
     cfg = _cfg(PredictConfig, str(both), pkls, ckpt, str(tmp_path / "out"))
     with pytest.raises(ValueError, match="photo.jpg: SOF9"):
         TP.predict_3d(cfg, device="cpu")
+
+
+# ------------------------------------------------------ one image API --
+
+def _single_image_detectors(pkls, **kw):
+    """The slice's two detectors in both packages, from the same pickles."""
+    from straps_tpu.perception.convert_d2 import load_d2_pkl as jax_load_d2_pkl
+    from straps_tpu_torch.perception.convert_d2 import load_d2_pkl, load_detector_state
+    kw = dict(post_nms_topk=64, max_detections=4, **kw)
+    ours = [load_detector_state(cls(**kw), load_d2_pkl(p))
+            for cls, p in ((TR.KeypointRCNN, pkls[0]), (TR.PointRendRCNN, pkls[1]))]
+    theirs = [(cls(**kw), jax_load_d2_pkl(p))
+              for cls, p in ((JPERC.KeypointRCNN, pkls[0]), (JPERC.PointRendRCNN, pkls[1]))]
+    return ours, theirs
+
+
+@pytest.mark.parametrize("output_size,test_size", [(FRAME, TEST_SIZE), (0, TEST_SIZE), (0, None)])
+def test_single_image_api_matches_jax(slice_inputs, monkeypatch, output_size, test_size):
+    """`predict_joints2d` and `predict_silhouette` on one of the slice's
+    frames against the JAX functions: joints within 0.1 px where the
+    keypoint argmax agrees (on 80% of them), boxes within 1e-3 px,
+    silhouettes equal on 99% of pixels, in the frame `output_size` and
+    `test_size` set."""
+    images, pkls, _ = slice_inputs
+    frame = TP.read_images(images, FRAME, "cpu")[1][1].numpy()
+    (kp, pr), ((jkp, jkp_vars), (jpr, jpr_vars)) = _single_image_detectors(
+        pkls, output_size=output_size)
+    calls = record_nms(monkeypatch)
+    joints, boxes = TF.predict_joints2d(frame, kp, test_size=test_size, device="cpu")
+    sil = TF.predict_silhouette(frame, pr, test_size=test_size, device="cpu")
+    assert_nms_margins(calls)
+    want_joints, want_boxes = JPERC.predict_joints2d(frame, jkp, jkp_vars, test_size=test_size)
+    want_sil = JPERC.predict_silhouette(frame, jpr, jpr_vars, test_size=test_size)
+    side = output_size or test_size or FRAME
+    assert joints.shape == (17, 3) and sil.shape == want_sil.shape == (side, side)
+    assert sil.dtype == np.float32 and want_sil.mean() > 0.02
+    np.testing.assert_allclose(boxes, np.asarray(want_boxes), atol=1e-3)
+    assert (np.abs(joints[:, :2] - want_joints[:, :2]).max(-1) < 0.1).mean() > 0.8
+    np.testing.assert_allclose(joints[:, 2], want_joints[:, 2], atol=1e-3)
+    assert (sil == want_sil).mean() > 0.99
+
+
+def test_single_image_api_finds_nobody_as_jax(slice_inputs):
+    """Nobody found (a score threshold no detection clears): zeros of the
+    model's frame, as the JAX functions return them."""
+    images, pkls, _ = slice_inputs
+    frame = TP.read_images(images, FRAME, "cpu")[1][0].numpy()
+    (kp, pr), ((jkp, jkp_vars), (jpr, jpr_vars)) = _single_image_detectors(
+        pkls, output_size=FRAME, score_thresh=1.01)
+    joints, _ = TF.predict_joints2d(frame, kp, test_size=TEST_SIZE, device="cpu")
+    sil = TF.predict_silhouette(frame, pr, test_size=TEST_SIZE, device="cpu")
+    want_sil = JPERC.predict_silhouette(frame, jpr, jpr_vars, test_size=TEST_SIZE)
+    np.testing.assert_array_equal(joints, JPERC.predict_joints2d(frame, jkp, jkp_vars,
+                                                                 test_size=TEST_SIZE)[0])
+    np.testing.assert_array_equal(sil, want_sil)
+    assert not joints.any() and sil.shape == (FRAME, FRAME) and not sil.any()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            TF.predict_silhouette(frame, pr, test_size=TEST_SIZE)

@@ -29,7 +29,8 @@ def _imported_modules(path):
             yield node.args[0].value
 
 
-PERCEPTION = ("__init__", "anchors", "convert_d2", "densepose", "fpn", "frontend", "heads",
+PERCEPTION = ("__init__", "anchors", "convert_d2", "densepose", "densepose_structures", "fpn",
+              "frontend", "heads",
               "ops", "pointrend", "rcnn", "rpn")
 
 

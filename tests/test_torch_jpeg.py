@@ -9,13 +9,17 @@ MCUs: a 4:2:0 baseline (600 x 452, quality 80), a 4:2:2 baseline with a
 restart interval of 7 MCUs (333 x 517), a 4:4:4 progressive (517 x 333),
 a 4:2:0 progressive (600 x 452), a greyscale baseline (245 x 301), and a
 baseline of 60 x 100 with a hand-made APP1 Exif block of orientation 6
-inserted after SOI (`exif_app1`), which cv2.imread turns to 100 x 60.
+inserted after SOI (`exif_app1`), which cv2.imread turns to 100 x 60, and
+a four-component Adobe CMYK baseline (86 x 58, quality 85) that Pillow
+writes (`cmyk_jpeg`; inverted CMYK, Adobe transform 0, as print workflows
+write it), which cv2.imread converts to BGR.
 `expected.json` holds each file's decoded shape and the SHA-256 of
 `cv2.imread(path)[:, :, ::-1]`; the first test holds it to the cv2 of
 this run.  The other tests write their JPEGs at test time.
 """
 
 import hashlib
+import io
 import json
 import os
 import struct
@@ -23,6 +27,7 @@ import struct
 import cv2
 import numpy as np
 import pytest
+from PIL import Image
 
 from straps_tpu_torch.utils import native_build
 from straps_tpu_torch.utils.jpeg import decode_jpeg, decode_jpeg_bytes
@@ -71,7 +76,25 @@ FIXTURES = {
     "progressive_420.jpg": ((452, 600), 4, [_Q, 80, _SF, SAMPLING["420"], _PROG, 1]),
     "grey.jpg": ((301, 245), 5, [_Q, 85]),
     "exif_orientation6.jpg": ((100, 60), 6, [_Q, 90]),
+    "cmyk_adobe.jpg": ((58, 86), 7, {"quality": 85}),
 }
+
+
+def cmyk_scene(h: int, w: int, seed: int) -> np.ndarray:
+    """A seeded (h, w, 4) uint8 CMYK scene: the inks of `scene`'s colours
+    and a black plate from a second scene."""
+    k = scene(h, w, seed + 50)[..., 1].astype(np.int64) * 3 // 4
+    return np.concatenate([255 - scene(h, w, seed), k[..., None].astype(np.uint8)], -1)
+
+
+def cmyk_jpeg(img: np.ndarray, **params) -> bytes:
+    """A four-component JPEG of a CMYK array as Pillow writes it (inverted
+    CMYK under an Adobe APP14 marker of transform 0)."""
+    buf = io.BytesIO()
+    h, w = img.shape[:2]
+    Image.frombytes("CMYK", (w, h), np.ascontiguousarray(img).tobytes()).save(
+        buf, "JPEG", **params)
+    return buf.getvalue()
 
 
 def _digest(img: np.ndarray) -> str:
@@ -85,7 +108,10 @@ def write_fixtures(directory: str) -> dict:
     for name, ((h, w), seed, params) in FIXTURES.items():
         img = scene(h, w, seed)
         img = cv2.cvtColor(img, cv2.COLOR_RGB2GRAY) if name.startswith("grey") else img[:, :, ::-1]
-        data = cv2.imencode(".jpg", img, params)[1].tobytes()
+        if name.startswith("cmyk"):
+            data = cmyk_jpeg(cmyk_scene(h, w, seed), **params)
+        else:
+            data = cv2.imencode(".jpg", img, params)[1].tobytes()
         if "exif" in name:
             data = data[:2] + exif_app1(6) + data[2:]
         path = os.path.join(directory, name)
@@ -189,7 +215,7 @@ def _four_components(data: bytes) -> bytes:
     ("sof5", "SOF5 \\(differential sequential\\)"),
     ("12bit", "precision 12"),
     ("dac", "DAC"),
-    ("cmyk", "4 components"),
+    ("2comp", "2 components in SOF0"),
 ])
 def test_unsupported_codings_are_refused_by_name(case, pattern, tmp_path):
     data = _encode(scene(32, 48, 0)[:, :, ::-1], [_Q, 80])
@@ -200,11 +226,41 @@ def test_unsupported_codings_are_refused_by_name(case, pattern, tmp_path):
     elif case == "dac":
         data = data[:2] + b"\xff\xcc\x00\x04\x00\x11" + data[2:]
     else:
-        data = _four_components(data)
+        data = _patched(data, 0xC0, 9, 2)
     path = tmp_path / f"{case}.jpg"
     path.write_bytes(data)
     with pytest.raises(ValueError, match=f"{case}.jpg: .*{pattern}"):
         decode_jpeg(str(path))
+
+
+def _adobe_transform(data: bytes, transform: int) -> bytes:
+    """`data` with its Adobe APP14 segment's colour transform set."""
+    return _patched(data, 0xEE, 15, transform)
+
+
+@pytest.mark.parametrize("case", ["cmyk", "pillow_cmyk", "pillow_cmyk_progressive",
+                                  "pillow_cmyk_subsampled", "ycck"])
+def test_four_component_jpegs_decode_as_cv2(case, tmp_path):
+    """cv2.imread reads four components as CMYK (YCCK under an Adobe
+    transform other than 0, turned into CMYK by libjpeg) and converts them
+    to BGR.  `cmyk` is a cv2 JPEG whose frame header declares a fourth
+    component that no scan carries: libjpeg keeps its coefficients at zero
+    (mid-grey K) and cv2 decodes it.  The Pillow files are inverted CMYK
+    under Adobe transform 0, at every size, progressive, and with the first
+    component at 2x2; `ycck` is the baseline with its transform set to 2."""
+    if case == "cmyk":
+        datas = [_four_components(_encode(scene(32, 48, 0)[:, :, ::-1], [_Q, 80]))]
+    else:
+        params = {"quality": 80, "progressive": case.endswith("progressive"),
+                  "subsampling": 2 if case.endswith("subsampled") else 0}
+        datas = [cmyk_jpeg(cmyk_scene(h, w, k), **params) for k, (h, w) in enumerate(SIZES)]
+        if case == "ycck":
+            datas = [_adobe_transform(d, 2) for d in datas]
+    for data in datas:
+        want = _cv2_rgb(data, tmp_path)
+        got = decode_jpeg_bytes(data)
+        assert got.shape == want.shape and got.flags.c_contiguous
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("restart", (0, 4))

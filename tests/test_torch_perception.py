@@ -457,13 +457,19 @@ def test_flax_weights_round_trip_through_d2_pickle(tmp_path, kind):
 
 
 def test_deeplab_head_scopes_are_named():
-    """A DeepLab DensePose head (ASPP, NonLocal, GroupNorm scopes) is not
-    ported: its flax scopes raise with their name instead of being
-    dropped."""
-    variables = {"params": {"densepose_head": {"aspp": {"conv1x1": {
-        "kernel": np.zeros((1, 1, 4, 4), np.float32)}}}}}
-    with pytest.raises(NotImplementedError, match="densepose_head/aspp/conv1x1"):
-        flax_detector_to_torch_state_dict(variables)
+    """A DeepLab DensePose head's flax scopes (ASPP, NonLocal, the stacked
+    convs' GroupNorms) get detectron2's names, none dropped."""
+    k = np.arange(16, dtype=np.float32).reshape(1, 1, 4, 4)
+    variables = {"params": {"densepose_head": {
+        "aspp": {"conv1x1": {"kernel": k}, "gn_pool": {"scale": np.ones(4, np.float32)}},
+        "nonlocal": {"phi": {"kernel": k, "bias": np.zeros(4, np.float32)}},
+        "gn3": {"scale": np.ones(4, np.float32), "bias": np.zeros(4, np.float32)}}}}
+    out = flax_detector_to_torch_state_dict(variables)
+    p = "roi_heads.densepose_head."
+    assert sorted(out) == sorted(p + n for n in (
+        "ASPP.convs.0.0.weight", "ASPP.convs.4.2.weight", "NLBlock.phi.0.weight",
+        "NLBlock.phi.0.bias", "body_conv_fcn3.norm.weight", "body_conv_fcn3.norm.bias"))
+    np.testing.assert_array_equal(out[p + "ASPP.convs.0.0.weight"], k.transpose(3, 2, 0, 1))
 
 
 def test_normalisation_matches_jax():
