@@ -7,8 +7,8 @@ Phases, each of which raises on failure:
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles both rasteriser kernels from `straps_tpu_torch/csrc`
      (each `.cu` with the shared `raster_span.cuh`), one nvcc each, and
-     the host C++ there (the JPEG decoder, the npy reader) with g++, all
-     started together;
+     the host C++ there (the JPEG decoder, the npy reader, the zstd
+     decoder) with g++, all started together;
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card, bit for bit (packed keys; face ids and depths): two triangles;
      the synthetic SMPL mesh at 256x256, B=8 and B=32, culled and not, a
@@ -146,6 +146,21 @@ Phases, each of which raises on failure:
        `flax_detector_to_torch_state_dict`, both equal to the seeded head.
        The phase's wall time is held to 40 s, and it launches neither
        kernel;
+     - the JAX package's orbax checkpoints, without JAX, orbax or
+       tensorstore: the committed JAX-written fixture
+       (`tests/torch_orbax/`) restored and held to its SHA-256 digests,
+       the zstd modes its frames reached printed (each of orbax's level-1
+       modes met); the training slice's trained ResNet-18 written with
+       `save_orbax_checkpoint` (~191 MB) and read back bit for bit; on
+       that directory against the same on the `.pt`: the predict CLI over
+       the 64 cached proxies at 256x256 (npy outputs bit-identical, exactly
+       2 face-id launches), the evaluation CLI on the 64 synthetic samples
+       (metrics equal, exactly 4 packed launches), the parity gate (exit 0,
+       every row PASS), and the training CLI resumed from it for one epoch
+       (history and state equal, exactly 6 packed launches); then the
+       restore's seconds and MB/s, the decoder's MB/s on the fixture's
+       frames, the write's seconds, and the restore of a directory as
+       large whose chunks are the fixture's compressed frames;
   5. times: each kernel at B=64, 256x256 (packed: culled eval bodies;
      face-id: unculled, the predict renders' own bodies), beside its bound
      and its plain version; the evaluation's and the predict's wall time;
@@ -180,7 +195,9 @@ Phases, each of which raises on failure:
      `scatter_vis` per image (figure alone, and with its PNG write), and
      the warm mixed-format predict; the face-id entry's
      `jpeg_path_launches` and `native_cached_launches` count phase 4i's
-     launches, which its `launches` include.
+     launches, which its `launches` include; both entries'
+     `orbax_launches` count phase 4l's launches on the orbax directory,
+     which their `launches` include.
 The whole run's wall time, then the card's name and power limit come
 before the `kernels` JSON, which is on the line before the last; the result
 JSON is last.
@@ -192,6 +209,7 @@ import hashlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -777,7 +795,7 @@ def profile_run(card, label, n, unit, run, top=10, host_top=8):
 # The detector slice (phase 4d): a 512 frame, detectron2's 800 test size.
 DET_FRAME, DET_TEST = 512, 800
 # The host C++ of `straps_tpu_torch/csrc/`, built with g++ beside the kernels.
-HOST_SOURCES = ("jpeg_decode", "straps_io")
+HOST_SOURCES = ("jpeg_decode", "straps_io", "zstd_decode")
 DET_SEED = 1
 RPN_DELTA_SCALE = 0.1
 
@@ -1719,6 +1737,266 @@ def detector_training_side(card, pkls, frames):
     return lines
 
 
+# Phase 4l: the JAX package's orbax checkpoints, read and written without
+# JAX, orbax or tensorstore.  The zstd modes orbax's level-1 frames reach in
+# the committed fixture (tests/test_torch_orbax.py holds the same list).
+ORBAX_FIXTURE = os.path.join("tests", "torch_orbax", "jax_ckpt_epoch3")
+FIXTURE_MODES = ("frames", "raw_blocks", "rle_blocks", "compressed_blocks", "raw_literals",
+                 "huffman_literals", "treeless_literals", "huffman_1_stream",
+                 "huffman_4_streams", "seq_predefined", "seq_fse")
+
+
+def tree_leaves(tree, prefix=""):
+    """(dotted key path, leaf) of a restored tree, None leaves left out."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        name = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, (dict, list)):
+            yield from tree_leaves(v, name)
+        elif v is not None:
+            yield name, v
+
+
+def same_checkpoint(a, b):
+    """Two `load_checkpoint` dicts equal, tensors bit for bit, BatchNorm's
+    `num_batches_tracked` aside: the JAX tree holds no such counter (a
+    directory reads as 0, the port's `.pt` counts the train steps), and
+    BatchNorm never reads it (its momentum is fixed)."""
+    if isinstance(b, torch.Tensor):
+        return (isinstance(a, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(b, dict):
+        return set(a) == set(b) and all(same_checkpoint(a[k], b[k]) for k in b
+                                        if not str(k).endswith("num_batches_tracked"))
+    if isinstance(b, list):
+        return len(a) == len(b) and all(same_checkpoint(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def state_digest(state):
+    """SHA-256 of the parameters, buffers (`num_batches_tracked` aside, as
+    in `same_checkpoint`), log-variances and Adam's moments."""
+    h = hashlib.sha256()
+    for k, t in state.model.state_dict().items():
+        if not k.endswith("num_batches_tracked"):
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    for t in state.log_vars.values():
+        h.update(t.detach().cpu().numpy().tobytes())
+    for s in state.optimizer.state_dict()["state"].values():
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            h.update(s[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def orbax_checkpoints(card, train_dir, train_cfg, proxy_dir, eval_data, smpl_dir, work):
+    """Phase 4l.  (a) The committed JAX-written fixture restored and held
+    to its SHA-256 digests, with the zstd modes its frames reached.  (b)
+    Phase 4c's trained ResNet-18 (the released configuration) written with
+    `save_orbax_checkpoint`, read back bit for bit, and each entry point on
+    the directory against the same entry point on the `.pt`: predict over
+    phase 4b's 64 cached proxies (npy outputs equal, 2 face-id launches),
+    eval on phase 4a's 64 samples (metrics equal, 4 packed launches), the
+    parity gate (every row PASS), a one-epoch resume (history and state
+    equal, 6 packed launches).  (c) Times.  Returns (lines, the directory
+    runs' launches {packed, faceid})."""
+    from straps_tpu_torch.cli import run_eval, run_parity_gate, run_predict, run_train
+    from straps_tpu_torch.render import cuda_raster as CR
+    from straps_tpu_torch.train.loop import build_training
+    from straps_tpu_torch.utils import zstd
+    from straps_tpu_torch.utils.checkpoints import (
+        checkpoint_path, load_checkpoint, orbax_checkpoint_path, restore_checkpoint,
+        save_orbax_checkpoint,
+    )
+
+    lines = []
+    # (a) The fixture.
+    fixture = os.path.join(HERE, ORBAX_FIXTURE)
+    with open(os.path.join(HERE, "tests", "torch_orbax", "digests.json")) as f:
+        want = json.load(f)
+    zstd.mode_counts(reset=True)
+    got = {name: {"sha256": hashlib.sha256(leaf.tobytes()).hexdigest(),
+                  "dtype": leaf.dtype.str, "shape": list(leaf.shape)}
+           for name, leaf in tree_leaves(restore_checkpoint(fixture))}
+    counts = zstd.mode_counts()
+    lines.append(f"orbax fixture: {len(got)} leaves restored, SHA-256 "
+                 f"{'equal' if got == want else 'DIFFERENT'}; zstd modes met: {counts}")
+    if got != want:
+        raise AssertionError("the orbax fixture does not reproduce its digests")
+    if not all(counts[m] > 0 for m in FIXTURE_MODES):
+        raise AssertionError(f"the fixture's frames missed a zstd mode: {counts}")
+
+    # (b) Phase 4c's trained state as the JAX package's orbax directory.
+    pt = os.path.join(train_dir, checkpoint_path(train_cfg.model_save_path, 0))
+    saved = load_checkpoint(pt)
+    state = build_training(train_cfg, device="cpu")[2]
+    state.load_state_dict(saved["state"])
+    orbax_dir = os.path.join(work, "straps_model_checkpoint_epoch0")
+    t0 = time.perf_counter()
+    save_orbax_checkpoint(orbax_dir, state, epoch=saved["epoch"], best_epoch=saved["best_epoch"],
+                          best_params=saved["best_params"],
+                          best_epoch_val_metrics=saved["best_epoch_val_metrics"],
+                          heatmap_mode=saved["meta"]["heatmap_mode"])
+    save_s = time.perf_counter() - t0
+    del state
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(orbax_dir) for f in fs)
+    restore_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        restored = restore_checkpoint(orbax_dir)
+        restore_s.append(time.perf_counter() - t0)
+    leaf_bytes = [leaf.nbytes for _, leaf in tree_leaves(restored)]
+    del restored
+    back = load_checkpoint(orbax_dir, task_order=train_cfg.losses_on)
+    if not same_checkpoint(back, saved):
+        raise AssertionError("the orbax directory does not read back as the .pt")
+    lines.append(f"orbax full width: {size} bytes written by save_orbax_checkpoint and read "
+                 f"back bit for bit (every tensor of the .pt but BatchNorm's "
+                 f"num_batches_tracked, which the JAX tree does not hold)")
+
+    # Predict over the 64 cached proxies, on the directory and on the .pt.
+    outs, faceid = {}, {}
+    for kind, ck in (("orbax", orbax_dir), ("pt", pt)):
+        outs[kind] = os.path.join(work, f"predict_{kind}")
+        torch.cuda.synchronize()
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            run_predict.main(["--input", proxy_dir, "--checkpoint", ck, "--out-dir", outs[kind],
+                              "--device", "cuda"])
+        torch.cuda.synchronize()
+        faceid[kind] = CR.faceid_raster_kernel.launches
+    npys = sorted(f for f in os.listdir(outs["pt"]) if f.endswith(".npy"))
+    same_npy = npys and all(np.array_equal(np.load(os.path.join(outs["orbax"], f)),
+                                           np.load(os.path.join(outs["pt"], f))) for f in npys)
+    lines.append(f"orbax predict: {len(npys)} npy outputs over the cached proxies at 256x256 "
+                 f"{'bit-identical' if same_npy else 'DIFFERENT'} to the .pt's, face-id "
+                 f"launches {faceid['orbax']} (directory) and {faceid['pt']} (.pt)")
+    if not same_npy or faceid["orbax"] != 2:
+        raise AssertionError("predict on the orbax directory differs from the .pt's")
+
+    # Eval on phase 4a's 64 samples.
+    metrics, packed = {}, {}
+    for kind, ck in (("orbax", orbax_dir), ("pt", pt)):
+        torch.cuda.synchronize()
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            metrics[kind] = run_eval.main(["--dataset", eval_data, "--checkpoint", ck,
+                                           "--img-wh", "256", "--batch-size", "32",
+                                           "--device", "cuda"])
+        torch.cuda.synchronize()
+        packed[kind] = CR.packed_raster_kernel.launches
+    same_metrics = metrics["orbax"] == metrics["pt"]
+    lines.append(f"orbax eval: metrics {'equal' if same_metrics else 'DIFFERENT'} to the .pt's "
+                 f"({metrics['orbax']}), packed launches {packed['orbax']}")
+    if not same_metrics or packed["orbax"] != 4:
+        raise AssertionError("eval on the orbax directory differs from the .pt's")
+    eval_launches = packed["orbax"]
+
+    # The parity gate on the directory.
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = run_parity_gate.main(["--smpl-dir", smpl_dir, "--checkpoint", orbax_dir,
+                                   "--input", proxy_dir, "--out-dir",
+                                   os.path.join(work, "gate"), "--device", "cuda"])
+    rows = gate_rows(out.getvalue())
+    lines.append(f"orbax gate: exit code {rc}, " + "; ".join(
+        f"{k} {v[0]} ({v[1]})" for k, v in rows.items()))
+    if rc != 0 or not rows or any(v[0] != "PASS" for v in rows.values()):
+        raise AssertionError(f"the parity gate on the orbax directory:\n{out.getvalue()}")
+
+    # A one-epoch resume from the directory and from the .pt, each in a
+    # copy of phase 4c's working directory (cuDNN's deterministic
+    # algorithms, so that two runs of one state can agree bit for bit).
+    resumed = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for kind in ("orbax", "pt"):
+            d = os.path.join(work, f"resume_{kind}")
+            shutil.copytree(train_dir, d)
+            if kind == "orbax":
+                os.remove(os.path.join(d, checkpoint_path(train_cfg.model_save_path, 0)))
+                shutil.copytree(orbax_dir, os.path.join(
+                    d, orbax_checkpoint_path(train_cfg.model_save_path, 0)))
+            torch.cuda.synchronize()
+            reset_launches()
+            with contextlib.chdir(d), contextlib.redirect_stdout(io.StringIO()):
+                st, _, tracker = run_train.main(["--synthetic-data", "--device", "cuda",
+                                                 "num_epochs=2", "resume_from_epoch=0",
+                                                 "data_parallel_devices=1"])
+            torch.cuda.synchronize()
+            resumed[kind] = (tracker.history, state_digest(st), st.step,
+                             CR.packed_raster_kernel.launches)
+            del st, tracker
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (h_o, d_o, s_o, l_o), (h_p, d_p, s_p, _) = resumed["orbax"], resumed["pt"]
+    lines.append(f"orbax resume: one epoch from the directory, history "
+                 f"{'equal' if h_o == h_p else 'DIFFERENT'} and state digest "
+                 f"{'equal' if d_o == d_p else 'DIFFERENT'} to the resume from the .pt, step "
+                 f"{s_o}, packed launches {l_o}")
+    if h_o != h_p or d_o != d_p or s_o != s_p or l_o != 6:
+        raise AssertionError("the resume from the orbax directory differs from the .pt's")
+
+    # (c) Times: restore of the full-width directory, the decoder on the
+    # fixture's compressed frames, the write.
+    from straps_tpu_torch.utils.ocdbt import OcdbtReader
+    reader = OcdbtReader(fixture)
+    frames = [bytes(reader.view(k)) for k in reader.list()
+              if not k.endswith(b".zarray") and bytes(reader.view(k))[:4] == b"\x28\xb5\x2f\xfd"]
+    decoded = sum(len(zstd.decompress(f)) for f in frames)
+    reps = max(1, int(64e6 // decoded))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for f in frames:
+            zstd.decompress(f)
+    zstd_s = (time.perf_counter() - t0) / reps
+    # The restore over compressed frames at the same scale: a directory of
+    # as many leaves, each at least its trained leaf's bytes, each chunk
+    # the fixture's frames of 64 KB and more concatenated (one zstd stream
+    # of several frames), written with the port's OCDBT writer.
+    from straps_tpu_torch.utils.ocdbt import write_database
+    big = [(f, len(zstd.decompress(f))) for f in frames]
+    big = [fn for fn in big if fn[1] >= 65536]
+    items, tree_meta, k = {}, {}, 0
+    for i, target in enumerate(leaf_bytes):
+        parts, n = [], 0
+        while n < target:
+            parts.append(big[k % len(big)][0])
+            n += big[k % len(big)][1]
+            k += 1
+        name = f"leaf{i:03d}"
+        tree_meta[repr((name,))] = {"key_metadata": [{"key": name, "key_type": 2}],
+                                    "value_metadata": {"value_type": "np.ndarray",
+                                                       "skip_deserialize": False}}
+        items[f"{name}/.zarray".encode()] = json.dumps(
+            {"chunks": [n], "compressor": {"id": "zstd", "level": 1},
+             "dimension_separator": ".", "dtype": "|u1", "fill_value": None, "filters": None,
+             "order": "C", "shape": [n], "zarr_format": 2}).encode()
+        items[f"{name}/0".encode()] = b"".join(parts)
+    packed_dir = os.path.join(work, "compressed_epoch0")
+    write_database(packed_dir, items)
+    with open(os.path.join(packed_dir, "_METADATA"), "w") as f:
+        json.dump({"tree_metadata": tree_meta, "use_ocdbt": True, "use_zarr3": False}, f)
+    stored = sum(len(v) for k, v in items.items() if not k.endswith(b".zarray"))
+    packed_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = restore_checkpoint(packed_dir)
+        packed_s.append(time.perf_counter() - t0)
+    out_bytes = sum(leaf.nbytes for leaf in out.values())
+    del out, items
+    best = min(restore_s)
+    lines.append(f"orbax times on {card}: restore_checkpoint of the {size / 1e6:.1f} MB "
+                 f"full-width directory {best:.3f} s ({size / 1e6 / best:.0f} MB/s; runs "
+                 f"{', '.join(f'{t:.3f}' for t in restore_s)} s); zstd decode of the fixture's "
+                 f"{len(frames)} frames ({decoded} bytes out), one thread: "
+                 f"{decoded / 1e6 / zstd_s:.0f} MB/s; save_orbax_checkpoint {save_s:.3f} s; "
+                 f"restore_checkpoint of {len(leaf_bytes)} leaves of the fixture's compressed "
+                 f"frames ({stored} bytes stored, {out_bytes} bytes out) {min(packed_s):.3f} s "
+                 f"({out_bytes / 1e6 / min(packed_s):.0f} MB/s out; runs "
+                 f"{', '.join(f'{t:.3f}' for t in packed_s)} s)")
+    return lines, {"packed": eval_launches + l_o, "faceid": faceid["orbax"]}
+
+
 def deeplab_forward_flops(R, cin=256, dim=512, convs=8, side=14):
     """Multiply-adds x 2 of the DeepLab head + predictor forward on R ROIs:
     ASPP's 1x1, three 3x3 and pooled branches and its projection, the
@@ -1772,7 +2050,8 @@ def main() -> int:
     dev = resolve_device("cuda")
 
     # 2. Build: one nvcc per kernel source and one g++ per host C++ source
-    # (the JPEG decoder, the npy reader), all started together.
+    # (the JPEG decoder, the npy reader, the zstd decoder), all started
+    # together.
     from straps_tpu_torch.utils import native_build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(CR.KERNELS) + len(HOST_SOURCES)) as pool:
@@ -2469,6 +2748,18 @@ def main() -> int:
         raise AssertionError(f"the detector training side took {train_side_s:.1f} s, over 40 s")
     torch.cuda.empty_cache()
 
+    # 4l. The JAX package's orbax checkpoints: the committed fixture, and
+    # phase 4c's trained state written as one and read at every entry point
+    # that takes a checkpoint.
+    t_orbax = time.perf_counter()
+    orbax_lines, orbax_launches = orbax_checkpoints(
+        card, train_dir, train_cfg, proxy_dir, data, smpl_dir, os.path.join(tmp.name, "orbax"))
+    for line in orbax_lines:
+        print(line)
+    print(f"slice: orbax checkpoint phase {time.perf_counter() - t_orbax:.1f} s wall; the "
+          f"directory runs' kernel launches {orbax_launches}")
+    torch.cuda.empty_cache()
+
     # 5. Times.
     flat, bounds, attr = smpl_kernel_inputs(assets, 256, 64, seed=5)
     kernel_ms = cuda_ms(lambda: CR.packed_raster_kernel(flat, bounds, attr, 256, 256), 200)
@@ -2707,14 +2998,18 @@ def main() -> int:
                   f"B={B} 256x256 first train batch (culled, jittered cameras, vertex noise); "
                   f"release_eval_launches: the {n}-sample SSP-3D-layout eval, image frame; "
                   f"r50_silhouette_train_launches: the ResNet-50 + silhouette train CLI; "
-                  f"ddp_launches: phase 4h's ranks (NCCL step and eval, two gloo steps)",
-        "launches": launches + train_launches + r50_launches + ddp_launches,
+                  f"ddp_launches: phase 4h's ranks (NCCL step and eval, two gloo steps); "
+                  f"orbax_launches: phase 4l's eval and one-epoch resume on the orbax "
+                  f"directory",
+        "launches": (launches + train_launches + r50_launches + ddp_launches
+                     + orbax_launches["packed"]),
         "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "train_ms": train_kernel_ms, "train_plain_ms": train_plain_ms,
         "train_bound_ms": train_bound_ms, "train_bound_by": train_bound_by,
         "release_eval_launches": release_launches,
-        "r50_silhouette_train_launches": r50_launches, "ddp_launches": ddp_launches}, {
+        "r50_silhouette_train_launches": r50_launches, "ddp_launches": ddp_launches,
+        "orbax_launches": orbax_launches["packed"]}, {
         "name": "raster_faceid", "route": "cuda",
         "source": "straps_tpu_torch/csrc/raster_faceid.cu",
         "replaces": "straps_tpu/render/pallas_raster.py:50",
@@ -2724,15 +3019,18 @@ def main() -> int:
                   f"predict of the {n} cached proxies with the ResNet-50 checkpoint; "
                   f"jpeg_path_launches: the predict of {n_mixed} PNG + JPEG images through "
                   f"PointRend; native_cached_launches: the predict of the {n} cached "
-                  f"proxies read by the native reader, 3D scatters written",
-        "launches": faceid_launches + r50_predict_launches + jpeg_launches + cached_vis_launches,
+                  f"proxies read by the native reader, 3D scatters written; orbax_launches: "
+                  f"phase 4l's predict of the {n} cached proxies on the orbax directory",
+        "launches": (faceid_launches + r50_predict_launches + jpeg_launches + cached_vis_launches
+                     + orbax_launches["faceid"]),
         "max_abs_err": max(faceid_errs),
         "ms": faceid_ms,
         "plain_ms": faceid_plain_ms, "bound_ms": faceid_bound_ms,
         "bound_by": faceid_bound_by, "library_ms": None,
         "image_path_launches": image_launches, "densepose_path_launches": dp_launches,
         "r50_predict_launches": r50_predict_launches, "jpeg_path_launches": jpeg_launches,
-        "native_cached_launches": cached_vis_launches}]}))
+        "native_cached_launches": cached_vis_launches,
+        "orbax_launches": orbax_launches["faceid"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -27,7 +27,9 @@ def build_parser():
                              "canonical eval npz (poses, shapes, optional genders, "
                              "silhouettes + joints2D)")
     parser.add_argument("--checkpoint", default=None,
-                        help="reference-format .tar; none = seeded random weights")
+                        help="reference-format .tar, a training checkpoint .pt of the port "
+                             "or an orbax checkpoint directory of the JAX package; none = "
+                             "seeded random weights")
     parser.add_argument("--metrics", nargs="+", default=list(DEFAULT_METRICS))
     parser.add_argument("--batch-size", type=int, default=8)
     parser.add_argument("--img-wh", type=int, default=256)

@@ -21,9 +21,9 @@ named tolerances, exiting 1 on any FAIL:
         --input demo_proxies/ --expected reference_outputs/
 
 Rows, details, tolerances and exit codes are the JAX gate's.  Runs on
-CUDA unless `--device cpu` is given.  The JAX package's orbax checkpoint
-directories are not read (that needs JAX): convert one to the port's `.pt`
-with `tools/export_jax_checkpoint.py` first.  `tests/test_torch_parity_gate.py`
+CUDA unless `--device cpu` is given.  `--checkpoint` also takes the JAX
+package's orbax checkpoint directories, read without JAX
+(`utils/checkpoints.py`).  `tests/test_torch_parity_gate.py`
 rehearses the gate on stand-ins written in the real formats and holds it
 against the JAX gate.
 """
@@ -144,7 +144,8 @@ def _flax_leaves(tree, path=()):
 
 def gate_regressor_checkpoint(checkpoint: Optional[str], assets, resnet_layers: int,
                               rows: List[GateRow]) -> None:
-    """Load the reference `.tar` (or a port `.pt`) through the predict
+    """Load the reference `.tar` (or a port `.pt`, or the JAX package's
+    orbax directory) through the predict
     path's loader, run a forward on zeros at 256², and round-trip the
     weights through the flax layout (`models/convert.py`) exactly."""
     import torch
@@ -158,17 +159,12 @@ def gate_regressor_checkpoint(checkpoint: Optional[str], assets, resnet_layers: 
     if checkpoint is None:
         rows.append(("regressor_checkpoint", True, "skipped (not provided)", "-"))
         return
-    if os.path.isdir(checkpoint):
-        rows.append(("regressor_checkpoint", False,
-                     f"{checkpoint} is an orbax directory of the JAX package, which the port "
-                     f"cannot read without JAX: convert it to .pt with "
-                     f"tools/export_jax_checkpoint.py", "converts"))
-        return
     cfg = PredictConfig(checkpoint=checkpoint)
     cfg.model.resnet_layers = resnet_layers
     try:
         # The pipeline's own loader: reference .tar -> best_model_state_dict,
-        # the port's .pt -> best parameters (+ heatmap mode).
+        # the port's .pt or a JAX orbax directory -> best parameters (+ heatmap
+        # mode).
         model, mode = load_regressor_variables(cfg, assets, device=assets.device)
     except Exception as e:  # noqa: BLE001
         rows.append(("regressor_checkpoint", False, f"{type(e).__name__}: {e}", "converts"))
@@ -309,8 +305,8 @@ def build_parser():
     p.add_argument("--smpl-dir", default=None,
                    help="reference additional/smpl directory (synthetic fixture when omitted)")
     p.add_argument("--checkpoint", default=None,
-                   help="reference straps_model_checkpoint.tar or a training checkpoint .pt "
-                        "of the port")
+                   help="reference straps_model_checkpoint.tar, a training checkpoint .pt "
+                        "of the port, or an orbax checkpoint directory of the JAX package")
     p.add_argument("--keypoint-checkpoint", default=None, help="detectron2 Keypoint-RCNN pkl")
     p.add_argument("--silhouette-checkpoint", default=None, help="detectron2 PointRend pkl")
     p.add_argument("--densepose-checkpoint", default=None, help="detectron2 DensePose R101 pkl")

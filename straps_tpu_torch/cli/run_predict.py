@@ -31,8 +31,9 @@ def build_parser():
                              "pointrend|densepose) or cached proxies, *_silhouette.npy + "
                              "*_joints2D.npy")
     parser.add_argument("--checkpoint", default=None,
-                        help="reference-format .tar or a training checkpoint .pt of "
-                             "the port; none = seeded random weights")
+                        help="reference-format .tar, a training checkpoint .pt of "
+                             "the port or an orbax checkpoint directory of the JAX "
+                             "package; none = seeded random weights")
     parser.add_argument("--silh-from", default="cached",
                         choices=["cached", "pointrend", "densepose"],
                         help="'cached' proxies, or the detector front end with PointRend "

@@ -153,6 +153,30 @@ def opt_state_from_optax(adam: Mapping[str, object], model, log_vars: Mapping[st
             for i, (m, v) in enumerate(zip(*moments))}
 
 
+def opt_state_to_optax(optimizer, model, log_vars: Mapping[str, torch.Tensor]) -> dict:
+    """Inverse of `opt_state_from_optax`: a `torch.optim.Adam` over the
+    model's parameters, then the log-variances -> optax Adam's
+    `ScaleByAdamState` as numpy `{count (int32), mu, nu}`, each moment a
+    `[flax params, {task: scalar}]` pair (zeros before the first step)."""
+    state = optimizer.state_dict()["state"]
+    named = [k for k, _ in model.named_parameters()]
+    params = list(model.parameters()) + list(log_vars.values())
+    step = 0
+    moments = {"mu": [], "nu": []}
+    for i, p in enumerate(params):
+        s = state.get(i, {})
+        step = int(float(s["step"])) if "step" in s else step
+        for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            v = s.get(key)
+            moments[name].append(np.zeros(tuple(p.shape), np.float32) if v is None
+                                 else v.detach().cpu().numpy().astype(np.float32))
+    out = {"count": np.asarray(step, np.int32)}
+    for name, values in moments.items():
+        tree = torch_state_dict_to_flax(dict(zip(named, values[:len(named)])))["params"]
+        out[name] = [tree, {k: v.reshape(()) for k, v in zip(log_vars, values[len(named):])}]
+    return out
+
+
 def train_state_from_flax(params: dict, batch_stats: dict, log_vars: Dict[str, object],
                           model, lr: float, device: Optional[torch.device] = None,
                           opt_state: Optional[Mapping[str, object]] = None):

@@ -25,7 +25,9 @@ from straps_tpu_torch.geometry.camera import (
 )
 from straps_tpu_torch.geometry.joints import undo_keypoint_normalisation
 from straps_tpu_torch.geometry.rotations import rot6d_to_rotmat
-from straps_tpu_torch.models.convert import load_reference_checkpoint
+from straps_tpu_torch.models.convert import (
+    flax_to_torch_state_dict, load_reference_checkpoint, state_dict_to_tensors,
+)
 from straps_tpu_torch.models.regressor import (
     SingleInputRegressor, build_regressor, init_random_weights,
 )
@@ -42,7 +44,9 @@ from straps_tpu_torch.render.vis import (
 )
 from straps_tpu_torch.smpl.assets import SmplAssets, load_assets
 from straps_tpu_torch.smpl.model import select_joint_sets, smpl_forward
-from straps_tpu_torch.utils.checkpoints import load_checkpoint
+from straps_tpu_torch.utils.checkpoints import (
+    decode_meta_str, load_checkpoint, restore_checkpoint,
+)
 from straps_tpu_torch.utils.device import resolve_device
 from straps_tpu_torch.utils.image import cv2_resize_linear_u8
 from straps_tpu_torch.utils.jpeg import decode_jpeg
@@ -124,10 +128,11 @@ def load_regressor_variables(cfg: PredictConfig, assets: SmplAssets,
     (heatmap mode 'clean'); a reference `.tar` -> its
     `best_model_state_dict` (trained on legacy-grid heatmaps); a training
     checkpoint of this package (`.pt`) -> its best parameters with the
-    state's BatchNorm statistics, and the heatmap mode it records.
-    Returns (model in eval mode, resolved heatmap mode).  The JAX
-    package's orbax checkpoints are read after conversion to `.pt` by
-    `tools/export_jax_checkpoint.py`."""
+    state's BatchNorm statistics, and the heatmap mode it records; an
+    orbax checkpoint directory of the JAX package -> the same from its
+    tree (`best_params`, `state.batch_stats`, `meta.heatmap_mode`), or a
+    plain `{params, batch_stats}` tree, as the JAX package's loader reads
+    it.  Returns (model in eval mode, resolved heatmap mode)."""
     device = resolve_device(device)
     model = build_regressor(assets.mean_pose_6d, assets.mean_shape,
                             in_channels=cfg.model.resnet_in_channels,
@@ -144,12 +149,22 @@ def load_regressor_variables(cfg: PredictConfig, assets: SmplAssets,
         ckpt = load_checkpoint(cfg.checkpoint)
         model.load_state_dict({**ckpt["state"]["model"], **ckpt["best_params"]}, strict=True)
         trained_mode = ckpt.get("meta", {}).get("heatmap_mode")
+    elif os.path.isdir(cfg.checkpoint):
+        tree = restore_checkpoint(cfg.checkpoint)
+        if "best_params" in tree:
+            params, batch_stats = tree["best_params"], tree["state"]["batch_stats"]
+        else:
+            params, batch_stats = tree["params"], tree["batch_stats"]
+        model.load_state_dict(state_dict_to_tensors(flax_to_torch_state_dict(
+            {"params": params, "batch_stats": batch_stats})), strict=True)
+        meta = tree.get("meta") or {}
+        if "heatmap_mode" in meta:
+            trained_mode = decode_meta_str(meta["heatmap_mode"])
     else:
         raise NotImplementedError(
-            f"{cfg.checkpoint}: the PyTorch port reads reference .tar checkpoints "
-            f"and its own training checkpoints (.pt); convert an orbax checkpoint "
-            f"of the JAX package to .pt with tools/export_jax_checkpoint.py "
-            f"where JAX is installed")
+            f"{cfg.checkpoint}: the PyTorch port reads reference .tar checkpoints, "
+            f"its own training checkpoints (.pt) and the JAX package's orbax "
+            f"checkpoint directories")
     mode = resolve_heatmap_mode(cfg.heatmap_mode, trained_mode, str(cfg.checkpoint))
     return model.to(device).eval(), mode
 

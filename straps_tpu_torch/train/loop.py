@@ -5,9 +5,10 @@ A train epoch with augmentation, a validation epoch without it over every
 sample (the tail batch padded by cycling samples), metric tracking with the
 all-metrics-must-improve best gate, a full-state checkpoint every
 `epochs_per_save` epochs and at the final epoch, and a resume that
-truncates the metric history.  The random draws of epoch `e` come from a
-`torch.Generator` on the device seeded with `seed * 100003 + e`, as the JAX
-loop seeds its key.
+truncates the metric history (from the epoch's `.pt` or, where there is
+none, the JAX package's orbax directory of the epoch).  The random draws
+of epoch `e` come from a `torch.Generator` on the device seeded with
+`seed * 100003 + e`, as the JAX loop seeds its key.
 
 With `data_parallel_devices` ranks in a process group (`parallel.launch`)
 every rank walks the same seeded permutation and draws, and steps on its
@@ -35,7 +36,7 @@ from straps_tpu_torch.train.state import TrainState, create_train_state
 from straps_tpu_torch.train.step import make_train_step, make_val_step
 from straps_tpu_torch.train.synthetic import draw_synthetic, shard_draws
 from straps_tpu_torch.utils.checkpoints import (
-    checkpoint_path, load_checkpoint, save_checkpoint,
+    checkpoint_path, load_checkpoint, orbax_checkpoint_path, save_checkpoint,
 )
 from straps_tpu_torch.utils.device import resolve_device
 from straps_tpu_torch.utils.model_utils import count_parameters
@@ -63,6 +64,15 @@ def build_training(cfg: TrainConfig, assets=None, device="cuda"):
     log_vars = init_loss_log_vars(cfg.losses_on, cfg.init_loss_weights, device=dev)
     state = create_train_state(model, log_vars, cfg.lr, mesh)
     return model, assets, state, make_train_step(assets, cfg), make_val_step(assets, cfg)
+
+
+def resume_path(model_save_path: str, epoch: int) -> str:
+    """The checkpoint a resume from `epoch` reads: the port's
+    `<model_save_path>_epoch<N>.pt`, or, where there is none, the JAX
+    package's orbax directory `<model_save_path>_epoch<N>`."""
+    pt, orbax_dir = checkpoint_path(model_save_path, epoch), orbax_checkpoint_path(
+        model_save_path, epoch)
+    return orbax_dir if not os.path.exists(pt) and os.path.isdir(orbax_dir) else pt
 
 
 def params_to_host(model) -> Dict[str, torch.Tensor]:
@@ -108,8 +118,8 @@ def train(cfg: TrainConfig, assets=None, max_steps_per_epoch: Optional[int] = No
     best_params = params_to_host(model)
     load_logs = False
     if cfg.resume_from_epoch is not None:
-        restored = load_checkpoint(checkpoint_path(cfg.model_save_path,
-                                                   cfg.resume_from_epoch))
+        restored = load_checkpoint(resume_path(cfg.model_save_path, cfg.resume_from_epoch),
+                                   task_order=cfg.losses_on)
         state.load_state_dict(restored["state"])
         current_epoch = int(restored["epoch"]) + 1
         best_epoch = int(restored["best_epoch"])

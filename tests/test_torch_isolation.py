@@ -1,19 +1,22 @@
 """Import guard of the PyTorch port: no file of `straps_tpu_torch/` (the
-detector front end in `perception/`, DensePose included, the image IO in
-`utils/` and the dataset loaders in `eval_harness/` included),
-nor `chip_smoke.py`, imports JAX, flax, orbax, cv2, matplotlib, PIL or the
-JAX package (the machine with the card has none of them), nor the orbax
+detector front end in `perception/`, DensePose included, the image IO and
+the orbax checkpoint reader in `utils/` and the dataset loaders in
+`eval_harness/` included), nor `chip_smoke.py`, imports JAX, flax, orbax,
+tensorstore, zstandard, numcodecs, cv2, matplotlib, PIL or the JAX
+package (the machine with the card has none of them), nor the orbax
 export tool `tools/export_jax_checkpoint.py`, which runs where JAX is
 installed and lies outside the package."""
 
 import ast
+import os
 import pathlib
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "cv2", "matplotlib", "PIL",
-             "straps_tpu", "tools", "export_jax_checkpoint")
+             "straps_tpu", "tools", "export_jax_checkpoint", "tensorstore", "zstandard",
+             "numcodecs")
 FILES = sorted((ROOT / "straps_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -42,22 +45,32 @@ def test_port_files_exist():
                       "render/soft_silhouette", "utils/model_utils", "utils/profiling",
                       "parallel/__init__", "parallel/mesh", "parallel/dryrun",
                       "utils/jpeg", "utils/native_build", "data/native_io", "render/figures",
-                      "render/tick_glyphs", "cli/run_parity_gate"]):
+                      "render/tick_glyphs", "cli/run_parity_gate", "utils/zstd",
+                      "utils/ocdbt", "utils/checkpoints"]):
         assert f"straps_tpu_torch/{module}.py" in names, module
-    for source in ("jpeg_decode.cpp", "straps_io.cpp"):
+    for source in ("jpeg_decode.cpp", "straps_io.cpp", "zstd_decode.cpp"):
         assert (ROOT / "straps_tpu_torch" / "csrc" / source).exists(), source
 
 
 def test_host_libraries_build_from_the_port_sources_only():
-    """The host C++ is the port's own (`straps_tpu_torch/csrc/`), built into
+    """The host C++ is the port's own (`straps_tpu_torch/csrc/`: the JPEG
+    decoder, the npy reader, the zstd decoder), built into
     `straps_tpu_torch/_build/`: no port file names the JAX package's
-    `native/` directory or its library."""
+    `native/` directory or its library, and each library's key hashes its
+    own source."""
     from straps_tpu_torch.utils import native_build
     assert native_build.CSRC_DIR == str(ROOT / "straps_tpu_torch" / "csrc")
     assert native_build.BUILD_DIR == str(ROOT / "straps_tpu_torch" / "_build")
     for path in FILES:
         text = path.read_text()
         assert "libstraps_io" not in text and '"native"' not in text, path
+    for name in ("jpeg_decode", "straps_io", "zstd_decode"):
+        source = ROOT / "straps_tpu_torch" / "csrc" / f"{name}.cpp"
+        assert native_build.local_includes(str(source)) == [str(source)], name
+    from straps_tpu_torch.utils import zstd
+    lib = zstd._lib()
+    assert os.path.dirname(lib._name) == native_build.BUILD_DIR
+    assert os.path.basename(lib._name).startswith("zstd_decode_")
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

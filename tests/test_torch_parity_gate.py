@@ -161,12 +161,17 @@ def test_missing_smpl_directory_fails(tmp_path, capsys):
 
 
 def test_orbax_directory_names_the_export_tool(stand_ins, tmp_path, capsys):
+    """The port reads the JAX package's orbax directories itself now
+    (`tests/test_torch_orbax.py` gates one against the JAX gate), so the
+    export tool is no longer named: a directory that is no orbax
+    checkpoint is a FAIL row naming what it lacks."""
     root, common = stand_ins
     orbax = tmp_path / "straps_model_checkpoint_epoch0"
     orbax.mkdir()
     rc = port_gate(["--smpl-dir", common[1], "--checkpoint", str(orbax), "--device", "cpu"])
     status, detail = _rows(capsys.readouterr().out)["regressor_checkpoint"]
-    assert rc == 1 and status == "FAIL" and "tools/export_jax_checkpoint.py" in detail
+    assert rc == 1 and status == "FAIL" and "_METADATA" in detail
+    assert "tools/export_jax_checkpoint.py" not in detail
 
 
 def test_detector_pickles_map_onto_the_detectors(stand_ins, tmp_path, capsys):
