@@ -7,8 +7,8 @@ Phases, each of which raises on failure:
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles both rasteriser kernels from `straps_tpu_torch/csrc`
      (each `.cu` with the shared `raster_span.cuh`), one nvcc each, and
-     the host C++ there (the JPEG decoder, the npy reader, the zstd
-     decoder) with g++, all started together;
+     the host C++ there (the JPEG decoder, the PNG unfilter, the npy
+     reader, the zstd decoder) with g++, all started together;
   3. kernels vs plain: each kernel against its plain PyTorch version on the
      card, bit for bit (packed keys; face ids and depths): two triangles;
      the synthetic SMPL mesh at 256x256, B=8 and B=32, culled and not, a
@@ -161,6 +161,22 @@ Phases, each of which raises on failure:
        restore's seconds and MB/s, the decoder's MB/s on the fixture's
        frames, the write's seconds, and the restore of a directory as
        large whose chunks are the fixture's compressed frames;
+     - every PNG and JPEG form cv2.imread reads: the committed fixtures
+       (`tests/torch_png/`, `tests/torch_jpeg/`) decoded and held to
+       cv2.imread's SHA-256 (PNGs in both reads; the JPEG codings cv2
+       reads no image from refused), each decoder's host milliseconds per
+       fixture, a 1024x768 interlaced palette PNG and the 600x452
+       arithmetic-coded progressive JPEG timed; the predict CLI through
+       PointRend at full width over 4 of the image slice's bodies rewritten
+       as palette, 16-bit, 1-bit and interlaced PNGs, the arithmetic,
+       lossless and cut JPEG fixtures, a progressive JPEG cut at run time
+       and an arithmetic JPEG named `.png` (detections on every image,
+       finite outputs, exactly 2 face-id launches held bit for bit, the
+       cached rerun identical); the release-layout eval on the same layout
+       with its silhouettes as palette, coloured and 16-bit PNGs, every
+       metric equal to the 8-bit grey layout's (2 packed launches each);
+       and one train epoch on the synthetic body model of seed 3
+       (generated, not read; exactly 6 packed launches);
   5. times: each kernel at B=64, 256x256 (packed: culled eval bodies;
      face-id: unculled, the predict renders' own bodies), beside its bound
      and its plain version; the evaluation's and the predict's wall time;
@@ -795,7 +811,7 @@ def profile_run(card, label, n, unit, run, top=10, host_top=8):
 # The detector slice (phase 4d): a 512 frame, detectron2's 800 test size.
 DET_FRAME, DET_TEST = 512, 800
 # The host C++ of `straps_tpu_torch/csrc/`, built with g++ beside the kernels.
-HOST_SOURCES = ("jpeg_decode", "straps_io", "zstd_decode")
+HOST_SOURCES = ("jpeg_decode", "png_decode", "straps_io", "zstd_decode")
 DET_SEED = 1
 RPN_DELTA_SCALE = 0.1
 
@@ -1285,6 +1301,204 @@ def write_ssp3d_layout(root, assets, n, seed, size=512):
     np.savez(os.path.join(root, "labels.npz"), fnames=np.asarray(fnames), shapes=shapes,
              poses=poses, genders=np.asarray(["m", "f"] * (n // 2)),
              joints2D=np.concatenate([j2d, np.ones((n, 17, 1), np.float32)], -1))
+
+
+# Phase 4m's colour forms of a silhouette (foreground, background): each
+# has a grey read > 0 exactly on the foreground, and a channel 0 that is
+# not (cv2's grey weights, 9797 R + 19234 G + 3737 B >> 15).
+SILHOUETTE_PALETTE = np.array([[0, 0, 8], [0, 180, 0], [0, 0, 255], [90, 0, 0]], np.uint8)
+
+
+def codings_folder(folder, img_dir, jpeg_dir, png_bytes):
+    """Phase 4m's predict input: 4 of phase 4d's body images rewritten as
+    an interlaced palette PNG (3-3-2 colours), a 16-bit RGB PNG, a 1-bit
+    grey PNG and an interlaced 16-bit grey PNG; the arithmetic-coded,
+    lossless and cut JPEG fixtures, a 600x452 progressive fixture cut at
+    half its length, and an arithmetic JPEG named `.png`."""
+    from straps_tpu_torch.utils.png import decode_png as port_decode_png
+
+    os.makedirs(folder)
+    bodies = sorted(os.listdir(img_dir))[:4]
+    imgs = [port_decode_png(os.path.join(img_dir, b)).astype(np.int64) for b in bodies]
+    luma = [(img @ np.array([299, 587, 114])) // 1000 for img in imgs]
+    pal = np.array([[r * 255 // 7, g * 255 // 7, b * 255 // 3]
+                    for r in range(8) for g in range(8) for b in range(4)])
+    idx = (imgs[0][..., 0] >> 5 << 5) | (imgs[0][..., 1] >> 5 << 2) | (imgs[0][..., 2] >> 6)
+    writes = {
+        "body_palette_adam7.png": png_bytes(idx[..., None], 3, 8, palette=pal, interlace=1),
+        "body_rgb16.png": png_bytes(imgs[1] * 256 + (imgs[1] * 7 & 255), 2, 16, idat_parts=3),
+        "body_grey1.png": png_bytes((luma[2] > 96)[..., None].astype(np.int64), 0, 1),
+        "body_grey16_adam7.png": png_bytes((luma[3] * 257)[..., None], 0, 16, interlace=1),
+    }
+    with open(os.path.join(jpeg_dir, "progressive_420.jpg"), "rb") as f:
+        data = f.read()
+    writes["progressive_420_cut.jpg"] = data[:len(data) // 2]
+    with open(os.path.join(jpeg_dir, "arith_prog_444_rst.jpg"), "rb") as f:
+        writes["arith_named.png"] = f.read()
+    for name, data in writes.items():
+        with open(os.path.join(folder, name), "wb") as f:
+            f.write(data)
+    for name in ("arith_seq_420.jpg", "arith_prog_420.jpg", "lossless_p1.jpg",
+                 "lossless_p4_cmyk.jpg", "huff_prog_420_cut.jpg", "arith_prog_420_cut.jpg"):
+        os.symlink(os.path.join(jpeg_dir, name), os.path.join(folder, name))
+
+
+def image_codings(card, dev, assets, pipe, run_predict, run_eval, work, img_dir, pkls,
+                  ckpt_pred, ckpt, ssp3d, batch, corpora, faceid_errs):
+    """Phase 4m: every PNG and JPEG form that cv2.imread reads.  (a) The
+    committed fixtures decoded and held to cv2's hashes, the codings cv2
+    refuses refused; (b) the predict CLI over PNG and JPEG forms through
+    PointRend at full width; (c) the release-layout eval on silhouettes
+    stored as palette, coloured and 16-bit PNGs against the same layout in
+    8-bit grey; (d) one train epoch on the synthetic body model of seed 3.
+    Returns (face-id launches of (b), packed launches of (c) and (d))."""
+    from straps_tpu_torch.config import TrainConfig
+    from straps_tpu_torch.render import cuda_raster as CR
+    from straps_tpu_torch.smpl.assets import load_synthetic_assets
+    from straps_tpu_torch.train.loop import train
+    from straps_tpu_torch.utils import png as port_png
+    from straps_tpu_torch.utils.jpeg import decode_jpeg
+    sys.path.insert(0, os.path.join(HERE, "tests", "torch_png"))
+    from pngwriter import png_bytes
+
+    def host_ms(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times))
+
+    digest = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()  # noqa
+    # (a) Fixtures.
+    png_dir = os.path.join(HERE, "tests", "torch_png")
+    jpeg_dir = os.path.join(HERE, "tests", "torch_jpeg")
+    with open(os.path.join(png_dir, "expected.json")) as f:
+        png_expected = json.load(f)
+    for name, want in sorted(png_expected.items()):
+        path = os.path.join(png_dir, name)
+        colour, grey = port_png.decode_png(path), port_png.decode_png_grey(path)
+        same = (list(colour.shape) == want["shape"] and digest(colour) == want["sha256"]
+                and digest(grey) == want["grey_sha256"])
+        ms = host_ms(lambda: port_png.decode_png(path))
+        grey_ms = host_ms(lambda: port_png.decode_png_grey(path))
+        print(f"png: {name} {colour.shape[1]}x{colour.shape[0]} colour and grey reads equal to "
+              f"cv2.imread's hashes {same}; decode_png {ms:.3f} ms, decode_png_grey "
+              f"{grey_ms:.3f} ms (host, median of 5, {card})")
+        if not same:
+            raise AssertionError(f"{name}: decoded pixels differ from cv2.imread's")
+    with open(os.path.join(jpeg_dir, "expected.json")) as f:
+        jpeg_expected = json.load(f)
+    for name, want in sorted(jpeg_expected.items()):
+        path = os.path.join(jpeg_dir, name)
+        if want is None:
+            try:
+                decode_jpeg(path)
+            except ValueError as e:
+                print(f"jpeg: {name}: refused as cv2.imread refuses it ({e})")
+                continue
+            raise AssertionError(f"{name}: decoded, where cv2.imread reads no image")
+        px = decode_jpeg(path)
+        same = list(px.shape) == want["shape"] and digest(px) == want["sha256"]
+        ms = host_ms(lambda: decode_jpeg(path))
+        print(f"jpeg: {name} {px.shape[1]}x{px.shape[0]} equal to cv2.imread's hash {same}; "
+              f"decode_jpeg {ms:.3f} ms (host, median of 5, {card})")
+        if not same:
+            raise AssertionError(f"{name}: decoded pixels differ from cv2.imread's")
+    rng = np.random.default_rng(14)
+    idx = rng.integers(0, 256, (768, 1024, 1))
+    pal = rng.integers(0, 256, (256, 3)).astype(np.uint8)
+    big = png_bytes(idx, 3, 8, palette=pal, interlace=1)
+    if not np.array_equal(port_png.decode_png_bytes(big), pal[idx[..., 0]]):
+        raise AssertionError("1024x768 palette Adam7 PNG: pixels differ from its palette's")
+    big_ms = host_ms(lambda: port_png.decode_png_bytes(big))
+    arith = os.path.join(jpeg_dir, "arith_prog_420.jpg")
+    arith_ms = host_ms(lambda: decode_jpeg(arith))
+    print(f"times on {card}: decode_png of a 1024x768 palette Adam7 PNG ({len(big)} bytes) "
+          f"{big_ms:.3f} ms; decode_jpeg of the 600x452 arithmetic-coded progressive 4:2:0 "
+          f"JPEG ({os.path.getsize(arith)} bytes) {arith_ms:.3f} ms (host, medians of 5)")
+
+    # (b) The predict CLI over the PNG and JPEG forms.
+    folder = os.path.join(work, "codings")
+    codings_folder(folder, img_dir, jpeg_dir, png_bytes)
+    out = os.path.join(work, "predict_codings")
+    reset_launches()
+    pred, wall, stage_s, det_outs = run_image_predict(
+        pipe, run_predict, ["--input", folder, "--silh-from", "pointrend",
+                            "--keypoint-checkpoint", pkls[0], "--silhouette-checkpoint", pkls[1],
+                            "--checkpoint", ckpt_pred, "--device", "cuda", "--out-dir", out])
+    codings_launches = CR.faceid_raster_kernel.launches
+    print(f"slice: predict of {len(pred['names'])} PNG and JPEG forms through Keypoint-RCNN + "
+          f"PointRend R50-FPN at {DET_TEST}x{DET_TEST}, frame {DET_FRAME}, first run: "
+          f"{wall:.3f} s wall, face-id kernel launches {codings_launches} (rend 1 + reposed 1); "
+          f"of the wall: " + ", ".join(f"{k} {v:.3f} s" for k, v in stage_s.items()))
+    if codings_launches != 2 or len(pred["names"]) != len(os.listdir(folder)):
+        raise AssertionError(f"codings predict: {len(pred['names'])} images, "
+                             f"{codings_launches} face-id launches")
+    check_image_predict("PointRend (PNG and JPEG forms)", pred, out, det_outs, assets, ckpt_pred,
+                        run_predict, faceid_errs)
+
+    # (c) The release layout with its silhouettes stored in other forms.
+    variants = os.path.join(work, "ssp_3d_forms")
+    os.makedirs(os.path.join(variants, "silhouettes"))
+    shutil.copy(os.path.join(ssp3d, "labels.npz"), variants)
+    names = sorted(os.listdir(os.path.join(ssp3d, "silhouettes")))
+    forms = []
+    for i, name in enumerate(names):
+        fg = port_png.decode_png_grey(os.path.join(ssp3d, "silhouettes", name)) > 0
+        form = ("palette", "coloured", "grey16")[i % 3]
+        if form == "palette":
+            data = png_bytes(np.where(fg, 1 + (np.arange(fg.shape[1]) % 3), 0)[..., None], 3, 2,
+                             palette=SILHOUETTE_PALETTE)
+        elif form == "coloured":
+            data = png_bytes(np.where(fg[..., None], [0, 200, 0], [0, 0, 8]), 2, 8)
+        else:
+            data = png_bytes(np.where(fg, 40000 + (np.arange(fg.shape[1]) % 251), 255)[..., None],
+                             0, 16)
+        with open(os.path.join(variants, "silhouettes", name), "wb") as f:
+            f.write(data)
+        forms.append(form)
+    metrics, launches = {}, {}
+    for label, root in (("8-bit grey", ssp3d), ("palette, coloured, 16-bit", variants)):
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            metrics[label] = run_eval.main(["--dataset", root, "--checkpoint", ckpt, "--img-wh",
+                                            "256", "--batch-size", str(batch), "--iou-frame",
+                                            "image", "--device", "cuda"])
+        launches[label] = CR.packed_raster_kernel.launches
+    grey_m, forms_m = metrics.values()
+    print(f"slice: eval of the {len(names)}-sample SSP-3D layout with its silhouettes as "
+          f"{forms.count('palette')} palette, {forms.count('coloured')} coloured and "
+          f"{forms.count('grey16')} 16-bit PNGs: silhouette IoU "
+          f"{forms_m['silhouette_ious']:.6f} against {grey_m['silhouette_ious']:.6f} from 8-bit "
+          f"grey PNGs, every metric equal {forms_m == grey_m}; packed kernel launches "
+          f"{list(launches.values())}")
+    if forms_m != grey_m or any(v != len(names) // batch for v in launches.values()):
+        raise AssertionError(f"release layout in other PNG forms: {forms_m} vs {grey_m}, "
+                             f"launches {launches}")
+
+    # (d) One train epoch on the body model of seed 3.
+    seed3 = load_synthetic_assets(device=dev, seed=3)
+    if torch.equal(seed3.posedirs, assets.posedirs):
+        raise AssertionError("seed 3's body model equals seed 0's")
+    cfg = TrainConfig(num_epochs=1, data_parallel_devices=1, train_path=corpora[0],
+                      val_path=corpora[1])
+    train_dir = os.path.join(work, "train_seed3")
+    os.makedirs(train_dir)
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.chdir(train_dir):
+        _, _, tracker = train(cfg, assets=seed3, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    train_launches = CR.packed_raster_kernel.launches
+    history = {k: v for k, v in tracker.history.items() if v}
+    print(f"slice: one train epoch at batch {cfg.batch_size} on the synthetic body model of "
+          f"seed 3 (generated, posedirs differ from seed 0's): {time.perf_counter() - t0:.3f} s "
+          f"wall, packed kernel launches {train_launches}, final train loss "
+          f"{history['train_losses'][-1]:.4f}")
+    if train_launches != 6 or not all(np.isfinite(v).all() for v in history.values()):
+        raise AssertionError(f"seed-3 epoch: {train_launches} packed launches, history {history}")
+    return codings_launches, sum(launches.values()) + train_launches
 
 
 def write_reference_additional_dir(root):
@@ -2535,16 +2749,17 @@ def main() -> int:
             or f"requested a {ranks}-device mesh but only" not in message):
         raise AssertionError("run_train with more ranks than cards did not refuse")
 
-    # 4i. JPEG photos and the whole vis output.  (a) The fixtures of
-    # tests/torch_jpeg decoded here, against the SHA-256 of cv2.imread's
-    # pixels committed beside them.
+    # 4i. JPEG photos and the whole vis output.  (a) The cv2-written
+    # fixtures of tests/torch_jpeg decoded here, against the SHA-256 of
+    # cv2.imread's pixels committed beside them (phase 4m holds the rest).
     from straps_tpu_torch.data import native_io
     from straps_tpu_torch.render import figures
     from straps_tpu_torch.utils.image import cv2_resize_linear_u8
     from straps_tpu_torch.utils.jpeg import decode_jpeg
+    from torch_jpeg.write_codings import CODINGS
     jpeg_dir = os.path.join(HERE, "tests", "torch_jpeg")
     with open(os.path.join(jpeg_dir, "expected.json")) as f:
-        jpeg_expected = json.load(f)
+        jpeg_expected = {k: v for k, v in json.load(f).items() if k not in CODINGS}
     for name, want in sorted(jpeg_expected.items()):
         px = decode_jpeg(os.path.join(jpeg_dir, name))
         digest = hashlib.sha256(np.ascontiguousarray(px).tobytes()).hexdigest()
@@ -2758,6 +2973,18 @@ def main() -> int:
         print(line)
     print(f"slice: orbax checkpoint phase {time.perf_counter() - t_orbax:.1f} s wall; the "
           f"directory runs' kernel launches {orbax_launches}")
+    torch.cuda.empty_cache()
+
+    # 4m. Every PNG and JPEG form cv2.imread reads: the fixtures, the
+    # predict CLI over those forms, the release-layout eval on silhouettes
+    # stored in them, and one train epoch on the body model of seed 3.
+    t_codings = time.perf_counter()
+    codings_launches, codings_packed = image_codings(
+        card, dev, assets, pipe, run_predict, run_eval, os.path.join(tmp.name, "codings_phase"), img_dir,
+        pkls, ckpt_pred, ckpt, ssp3d, batch,
+        [os.path.join(train_dir, os.path.dirname(train_cfg.log_path), f"synthetic_{s}.npz")
+         for s in ("train", "val")], faceid_errs)
+    print(f"slice: image codings phase {time.perf_counter() - t_codings:.1f} s wall")
     torch.cuda.empty_cache()
 
     # 5. Times.
@@ -3000,16 +3227,17 @@ def main() -> int:
                   f"r50_silhouette_train_launches: the ResNet-50 + silhouette train CLI; "
                   f"ddp_launches: phase 4h's ranks (NCCL step and eval, two gloo steps); "
                   f"orbax_launches: phase 4l's eval and one-epoch resume on the orbax "
-                  f"directory",
+                  f"directory; codings_launches: phase 4m's two release-layout evals "
+                  f"(8-bit grey and other PNG forms) and its seed-3 train epoch",
         "launches": (launches + train_launches + r50_launches + ddp_launches
-                     + orbax_launches["packed"]),
+                     + orbax_launches["packed"] + codings_packed),
         "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "train_ms": train_kernel_ms, "train_plain_ms": train_plain_ms,
         "train_bound_ms": train_bound_ms, "train_bound_by": train_bound_by,
         "release_eval_launches": release_launches,
         "r50_silhouette_train_launches": r50_launches, "ddp_launches": ddp_launches,
-        "orbax_launches": orbax_launches["packed"]}, {
+        "orbax_launches": orbax_launches["packed"], "codings_launches": codings_packed}, {
         "name": "raster_faceid", "route": "cuda",
         "source": "straps_tpu_torch/csrc/raster_faceid.cu",
         "replaces": "straps_tpu/render/pallas_raster.py:50",
@@ -3020,9 +3248,10 @@ def main() -> int:
                   f"jpeg_path_launches: the predict of {n_mixed} PNG + JPEG images through "
                   f"PointRend; native_cached_launches: the predict of the {n} cached "
                   f"proxies read by the native reader, 3D scatters written; orbax_launches: "
-                  f"phase 4l's predict of the {n} cached proxies on the orbax directory",
+                  f"phase 4l's predict of the {n} cached proxies on the orbax directory; "
+                  f"codings_path_launches: phase 4m's predict over PNG and JPEG forms",
         "launches": (faceid_launches + r50_predict_launches + jpeg_launches + cached_vis_launches
-                     + orbax_launches["faceid"]),
+                     + orbax_launches["faceid"] + codings_launches),
         "max_abs_err": max(faceid_errs),
         "ms": faceid_ms,
         "plain_ms": faceid_plain_ms, "bound_ms": faceid_bound_ms,
@@ -3030,7 +3259,8 @@ def main() -> int:
         "image_path_launches": image_launches, "densepose_path_launches": dp_launches,
         "r50_predict_launches": r50_predict_launches, "jpeg_path_launches": jpeg_launches,
         "native_cached_launches": cached_vis_launches,
-        "orbax_launches": orbax_launches["faceid"]}]}))
+        "orbax_launches": orbax_launches["faceid"],
+        "codings_path_launches": codings_launches}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,7 +11,14 @@ superset:
   [73:90)  17 H36M regressed joints
 """
 
+NUM_VERTS = 6890
+NUM_FACES = 13776
 NUM_BETAS = 10
+
+# The SMPL kinematic tree: each joint's parent (-1 for the root).
+SMPL_PARENTS = [
+    -1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18, 19, 20, 21
+]
 
 # Superset -> 17 COCO joints.
 ALL_JOINTS_TO_COCO_MAP = [24, 26, 25, 28, 27, 16, 17, 18, 19, 20, 21, 1, 2, 4, 5, 7, 8]

@@ -5,7 +5,8 @@ optionally silhouettes (N, H, W) and joints2D (N, 17, 2|3).  SSP-3D ships
 as a `labels.npz` beside `silhouettes/` and `images/` folders, 3DPW as
 per-sequence pickles; `load_eval_dataset` reads either release layout, or
 a canonical npz, with the key aliases of the common public releases.
-Silhouette PNGs are read by `utils/png.py::decode_png`.
+Silhouette PNGs are read by `utils/png.py::decode_png_grey`, as the JAX
+package's `cv2.imread(path, cv2.IMREAD_GRAYSCALE)`.
 """
 
 import glob
@@ -15,7 +16,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from straps_tpu_torch.utils.png import decode_png
+from straps_tpu_torch.utils.png import decode_png_grey
 
 _POSE_KEYS = ("poses", "pose", "body_poses", "smpl_poses")
 _SHAPE_KEYS = ("shapes", "shape", "betas", "bodyshapes", "smpl_shapes")
@@ -41,10 +42,11 @@ def normalise_gender(g) -> str:
 def load_ssp3d(labels_path: str, silhouette_dir: Optional[str] = None) -> Dict[str, np.ndarray]:
     """An SSP-3D-style labels npz (key aliases accepted), and, where
     `silhouette_dir` has a `<fname>.npy` or `<fname>.png` for every entry
-    of `fnames`, the silhouettes: an npy as float32, a PNG as channel 0 >
-    0, which is `cv2.imread(path, cv2.IMREAD_GRAYSCALE) > 0` on the grey
-    PNGs of the release.  Genders become 'm' / 'f' / 'n'; the release's
-    `cam_trans`, `bbox_centres` and `bbox_whs` ride along."""
+    of `fnames`, the silhouettes: an npy as float32, a PNG as
+    `cv2.imread(path, cv2.IMREAD_GRAYSCALE) > 0` (any colour type and
+    depth: a colour PNG's grey is libpng's weighted sum, not a channel).
+    Genders become 'm' / 'f' / 'n'; the release's `cam_trans`,
+    `bbox_centres` and `bbox_whs` ride along."""
     data = dict(np.load(labels_path, allow_pickle=True))
     pk = _first_key(data, _POSE_KEYS)
     sk = _first_key(data, _SHAPE_KEYS)
@@ -72,7 +74,7 @@ def load_ssp3d(labels_path: str, silhouette_dir: Optional[str] = None) -> Dict[s
             if os.path.exists(base + ".npy"):
                 sils.append(np.load(base + ".npy").astype(np.float32))
             elif os.path.exists(base + ".png"):
-                sils.append((decode_png(base + ".png")[..., 0] > 0).astype(np.float32))
+                sils.append((decode_png_grey(base + ".png") > 0).astype(np.float32))
             else:
                 sils = None
                 break

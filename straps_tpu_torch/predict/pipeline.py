@@ -49,8 +49,8 @@ from straps_tpu_torch.utils.checkpoints import (
 )
 from straps_tpu_torch.utils.device import resolve_device
 from straps_tpu_torch.utils.image import cv2_resize_linear_u8
-from straps_tpu_torch.utils.jpeg import decode_jpeg
-from straps_tpu_torch.utils.png import decode_png, write_png
+from straps_tpu_torch.utils.jpeg import decode_jpeg_bytes
+from straps_tpu_torch.utils.png import SIGNATURE as PNG_SIGNATURE, decode_png_bytes, write_png
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -240,10 +240,16 @@ def build_detector_models(cfg: PredictConfig, output_size: int, device="cuda",
 
 def read_image(path: str) -> np.ndarray:
     """One image file as `cv2.imread(path)[:, :, ::-1]` reads it: uint8
-    (H, W, 3) RGB; `.jpg` through the JPEG decoder, the rest as PNG."""
-    if path.lower().endswith(".jpg"):
-        return decode_jpeg(path)
-    return decode_png(path)
+    (H, W, 3) RGB.  As cv2 does, the decoder is chosen by the file's first
+    bytes, not its name: JPEG (FF D8) or PNG (its signature); anything
+    else raises a ValueError naming the file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] == b"\xff\xd8":
+        return decode_jpeg_bytes(data, path)
+    if data[:8] == PNG_SIGNATURE:
+        return decode_png_bytes(data, path)
+    raise ValueError(f"{path}: neither a JPEG nor a PNG file (first bytes {data[:8].hex()})")
 
 
 def read_images(input_dir: str, size: int, device) -> Tuple[List[str], torch.Tensor]:

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from straps_tpu_torch import constants as C
+from straps_tpu_torch.smpl.fixtures import generate_synthetic_smpl_arrays
 from straps_tpu_torch.utils.device import resolve_device
 
 SYNTHETIC_ASSETS = os.path.join(os.path.dirname(os.path.dirname(
@@ -165,10 +166,18 @@ def load_assets(smpl_dir: Optional[str] = None, gender: str = "neutral",
     return load_synthetic_assets(device=device)
 
 
-def load_synthetic_assets(device="cuda") -> SmplAssets:
-    """The synthetic body fixture `assets/synthetic_smpl.npz` (committed;
-    generated by the JAX package's `smpl/fixtures.py`), on `device` (`cuda`
-    raises without a card)."""
+def load_synthetic_assets(device="cuda", seed: int = 0) -> SmplAssets:
+    """The synthetic body model of `smpl/fixtures.py` on `device` (`cuda`
+    raises without a card), as the JAX package's loader gives it: seed 0
+    is the committed `assets/synthetic_smpl.npz`, generated and written
+    there when the file is missing; any other seed is generated."""
     device = resolve_device(device)
-    with np.load(SYNTHETIC_ASSETS) as f:
-        return _to_assets(dict(f), device=device, is_synthetic=True)
+    if seed == 0 and os.path.exists(SYNTHETIC_ASSETS):
+        with np.load(SYNTHETIC_ASSETS) as f:
+            d = dict(f)
+    else:
+        d = generate_synthetic_smpl_arrays(seed=seed)
+        if seed == 0:
+            os.makedirs(os.path.dirname(SYNTHETIC_ASSETS), exist_ok=True)
+            np.savez_compressed(SYNTHETIC_ASSETS, **d)
+    return _to_assets(d, device=device, is_synthetic=True)

@@ -1,24 +1,35 @@
 """JPEG reading: `decode_jpeg(path)` is `cv2.imread(path)[:, :, ::-1]`
-(an RGB uint8 (H, W, 3) array) for the JPEGs the predict path reads, equal
-bit for bit to cv2 built with libjpeg-turbo, without cv2.
+(an RGB uint8 (H, W, 3) array) for every JPEG that cv2 reads, equal bit for
+bit to cv2 built with libjpeg-turbo 3.1, without cv2.
 
 The decoding is host C++ (`csrc/jpeg_decode.cpp`, built with g++ at first
-use): baseline, extended sequential and progressive Huffman JPEGs of 8-bit
-samples, greyscale (replicated to three channels), three-component or
-four-component, every sampling factor cv2 writes, restart intervals, any
-size; libjpeg's ISLOW inverse DCT, fancy upsampling and fixed-point
-YCbCr->RGB.  Four components are read as cv2 reads them: CMYK as stored
-(Adobe transform 0, as Pillow and Photoshop write it, or no Adobe marker)
-or YCCK (any other transform) turned into CMYK by libjpeg's tables, then
-cv2's integer CMYK->BGR conversion (R, G, B = k - ((255 - x) * k >> 8)
-for x = C, M, Y).  An APP1
-Exif orientation of 2-8 is then applied as `cv2.imread` does.  A file cut
-short inside its image data decodes as libjpeg does (the rest reads as
-zero bits, grey for a sequential file), as cv2 returns it.
+use).  It reads the DCT codings of 8-bit samples, Huffman or arithmetic:
+baseline and extended sequential (SOF0, SOF1, SOF9) and progressive
+(SOF2, SOF10), with restart intervals and any DAC conditioning; and
+lossless Huffman frames (SOF3) of 2-8 bits, predictors 1-7 and any point
+transform, whose samples are output as stored (shifted by the point
+transform, not rescaled).  Greyscale (replicated to three channels),
+three-component or four-component, every sampling factor libjpeg reads,
+any size; libjpeg-turbo's ISLOW inverse DCT as its SIMD code computes it
+(`idct_islow`), fancy upsampling and fixed-point YCbCr->RGB.  Four
+components are read as cv2 reads them: CMYK as stored (Adobe transform 0,
+as Pillow and Photoshop write it, or no Adobe marker) or YCCK (any other
+transform) turned into CMYK by libjpeg's tables, then cv2's integer
+CMYK->BGR conversion (R, G, B = k - ((255 - x) * k >> 8) for x = C, M, Y).
+An APP1 Exif orientation of 2-8 is then applied as `cv2.imread` does.
 
-Refused with a ValueError naming the file and the marker: arithmetic
-coding (SOF9-SOF15, DAC), lossless (SOF3) and hierarchical (SOF5-SOF7,
-DHP) frames, precisions other than 8 bits, and 2 components.
+A file cut short decodes as libjpeg does for cv2: Huffman data reads as
+zero bits for the MCU in progress and the MCUs after it keep what they
+have until a restart marker; arithmetic data reads as zero bytes to the
+end of the scan; a marker segment cut short reads on into the EOI markers
+libjpeg supplies; a progressive file whose coefficients 1-9 are left
+incomplete is block-smoothed as libjpeg-turbo 3.1 smooths it.
+
+Refused with a ValueError naming the file and the marker, as cv2.imread
+reads no image from them: precisions other than 8 bits (2-8 lossless),
+arithmetic-coded lossless (SOF11) and hierarchical (SOF5-SOF7,
+SOF13-SOF15, DHP, EXP) frames, 2 components, and lossless greyscale or
+YCbCr files (libjpeg-turbo converts no colours in lossless mode).
 """
 
 import ctypes

@@ -319,7 +319,7 @@ def test_random_detectors_need_opting_in(slice_inputs, tmp_path):
 
 
 def test_jpg_inputs_are_refused(slice_inputs, tmp_path, monkeypatch):
-    """Only JPEGs of a coding the decoder does not read are refused, by
+    """Only JPEGs of a coding cv2 reads no image from are refused, by
     name.  A folder of PNG and JPEG images is read in the JAX pipeline's
     order (sorted by full path: a PNG and a JPEG of one stem are two
     entries) with the pixels cv2.imread gives, and predict_3d over PNG +
@@ -351,11 +351,13 @@ def test_jpg_inputs_are_refused(slice_inputs, tmp_path, monkeypatch):
         np.testing.assert_array_equal(
             frame, cv2.resize(img, (FRAME, FRAME), interpolation=cv2.INTER_LINEAR), path)
 
-    data = bytearray((mixed / "im2.jpg").read_bytes())
-    data[data.index(b"\xff\xc0") + 1] = 0xC9                  # arithmetic coding
-    (both / "photo.jpg").write_bytes(bytes(data))
+    # A 12-bit JPEG, which cv2.imread reads no image from either.
+    from torch_jpeg.write_codings import write_jpeg
+    (both / "photo.jpg").write_bytes(write_jpeg(im2[::4, ::4, ::-1].astype(np.uint16) << 4,
+                                                precision=12))
+    assert cv2.imread(str(both / "photo.jpg")) is None
     cfg = _cfg(PredictConfig, str(both), pkls, ckpt, str(tmp_path / "out"))
-    with pytest.raises(ValueError, match="photo.jpg: SOF9"):
+    with pytest.raises(ValueError, match="photo.jpg: SOF1 precision 12"):
         TP.predict_3d(cfg, device="cpu")
 
 

@@ -1,7 +1,8 @@
 """Import guard of the PyTorch port: no file of `straps_tpu_torch/` (the
-detector front end in `perception/`, DensePose included, the image IO and
-the orbax checkpoint reader in `utils/` and the dataset loaders in
-`eval_harness/` included), nor `chip_smoke.py`, imports JAX, flax, orbax,
+detector front end in `perception/`, DensePose included, the image IO,
+the synthetic body model's generator in `smpl/fixtures.py`, the orbax
+checkpoint reader in `utils/` and the dataset loaders in `eval_harness/`
+included), nor `chip_smoke.py`, imports JAX, flax, orbax,
 tensorstore, zstandard, numcodecs, cv2, matplotlib, PIL or the JAX
 package (the machine with the card has none of them), nor the orbax
 export tool `tools/export_jax_checkpoint.py`, which runs where JAX is
@@ -46,15 +47,17 @@ def test_port_files_exist():
                       "parallel/__init__", "parallel/mesh", "parallel/dryrun",
                       "utils/jpeg", "utils/native_build", "data/native_io", "render/figures",
                       "render/tick_glyphs", "cli/run_parity_gate", "utils/zstd",
-                      "utils/ocdbt", "utils/checkpoints"]):
+                      "utils/ocdbt", "utils/checkpoints", "smpl/fixtures", "smpl/assets"]):
         assert f"straps_tpu_torch/{module}.py" in names, module
-    for source in ("jpeg_decode.cpp", "straps_io.cpp", "zstd_decode.cpp"):
+    for source in ("jpeg_decode.cpp", "jpeg_aritab.h", "png_decode.cpp", "straps_io.cpp",
+                   "zstd_decode.cpp"):
         assert (ROOT / "straps_tpu_torch" / "csrc" / source).exists(), source
 
 
 def test_host_libraries_build_from_the_port_sources_only():
     """The host C++ is the port's own (`straps_tpu_torch/csrc/`: the JPEG
-    decoder, the npy reader, the zstd decoder), built into
+    decoder and its arithmetic table, the PNG unfilter, the npy reader, the
+    zstd decoder), built into
     `straps_tpu_torch/_build/`: no port file names the JAX package's
     `native/` directory or its library, and each library's key hashes its
     own source."""
@@ -64,9 +67,12 @@ def test_host_libraries_build_from_the_port_sources_only():
     for path in FILES:
         text = path.read_text()
         assert "libstraps_io" not in text and '"native"' not in text, path
-    for name in ("jpeg_decode", "straps_io", "zstd_decode"):
-        source = ROOT / "straps_tpu_torch" / "csrc" / f"{name}.cpp"
+    csrc = ROOT / "straps_tpu_torch" / "csrc"
+    for name in ("png_decode", "straps_io", "zstd_decode"):
+        source = csrc / f"{name}.cpp"
         assert native_build.local_includes(str(source)) == [str(source)], name
+    assert native_build.local_includes(str(csrc / "jpeg_decode.cpp")) == [
+        str(csrc / "jpeg_decode.cpp"), str(csrc / "jpeg_aritab.h")]
     from straps_tpu_torch.utils import zstd
     lib = zstd._lib()
     assert os.path.dirname(lib._name) == native_build.BUILD_DIR

@@ -15,7 +15,9 @@ writes (`cmyk_jpeg`; inverted CMYK, Adobe transform 0, as print workflows
 write it), which cv2.imread converts to BGR.
 `expected.json` holds each file's decoded shape and the SHA-256 of
 `cv2.imread(path)[:, :, ::-1]`; the first test holds it to the cv2 of
-this run.  The other tests write their JPEGs at test time.
+this run.  (It also holds the entries of the arithmetic, lossless, cut and
+12-bit files of `write_codings.py`, which `test_torch_jpeg_codings.py`
+checks.)  The other tests write their JPEGs at test time.
 """
 
 import hashlib
@@ -31,27 +33,10 @@ from PIL import Image
 
 from straps_tpu_torch.utils import native_build
 from straps_tpu_torch.utils.jpeg import decode_jpeg, decode_jpeg_bytes
+from torch_jpeg.write_codings import scene
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_jpeg")
-
-
-def scene(h: int, w: int, seed: int) -> np.ndarray:
-    """A seeded photo-like RGB scene: a colour gradient, shapes with hard
-    edges and soft shading, mild noise."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
-    img = np.stack([xx / w * 200 + 30, yy / h * 160 + 60, (1 - xx / w) * 120 + yy / h * 80], -1)
-    for _ in range(12):
-        cy, cx, r = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(8, max(min(h, w) / 4, 8))
-        col = rng.uniform(0, 255, 3)
-        if rng.random() < 0.5:
-            m = (yy - cy) ** 2 + (xx - cx) ** 2 < r ** 2
-        else:
-            m = (np.abs(yy - cy) < r) & (np.abs(xx - cx) < r * rng.uniform(0.3, 2))
-        img[m] = col * (0.75 + 0.25 * np.cos(xx[m] / 9.0))[:, None]
-    img += rng.normal(0, 4, img.shape)
-    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def exif_app1(orientation: int, little_endian: bool = True) -> bytes:
@@ -147,7 +132,9 @@ def test_fixtures_decode_as_cv2_and_expected_json(name):
 
 def test_fixtures_are_what_write_fixtures_writes(tmp_path):
     with open(os.path.join(FIXTURE_DIR, "expected.json")) as f:
-        assert write_fixtures(str(tmp_path)) == json.load(f)
+        expected = json.load(f)
+    # expected.json also holds the entries of `write_codings.py`'s files.
+    assert write_fixtures(str(tmp_path)) == {name: expected[name] for name in FIXTURES}
     assert sum(os.path.getsize(os.path.join(FIXTURE_DIR, n)) for n in FIXTURES) < 300_000
 
 
@@ -209,12 +196,9 @@ def _four_components(data: bytes) -> bytes:
 
 
 @pytest.mark.parametrize("case,pattern", [
-    ("sof9", "SOF9 \\(arithmetic-coded sequential\\)"),
-    ("sof10", "SOF10 \\(arithmetic-coded progressive\\)"),
-    ("sof3", "SOF3 \\(lossless\\)"),
     ("sof5", "SOF5 \\(differential sequential\\)"),
+    ("sof11", "SOF11 \\(arithmetic-coded lossless\\)"),
     ("12bit", "precision 12"),
-    ("dac", "DAC"),
     ("2comp", "2 components in SOF0"),
 ])
 def test_unsupported_codings_are_refused_by_name(case, pattern, tmp_path):
@@ -223,14 +207,42 @@ def test_unsupported_codings_are_refused_by_name(case, pattern, tmp_path):
         data = _patched(data, 0xC0, 1, 0xC0 + int(case[3:]))
     elif case == "12bit":
         data = _patched(data, 0xC0, 4, 12)
-    elif case == "dac":
-        data = data[:2] + b"\xff\xcc\x00\x04\x00\x11" + data[2:]
     else:
         data = _patched(data, 0xC0, 9, 2)
+    assert _cv2_rgb_or_none(data, tmp_path) is None
     path = tmp_path / f"{case}.jpg"
     path.write_bytes(data)
     with pytest.raises(ValueError, match=f"{case}.jpg: .*{pattern}"):
         decode_jpeg(str(path))
+
+
+def _cv2_rgb_or_none(data: bytes, tmp_path):
+    path = str(tmp_path / "x.jpg")
+    with open(path, "wb") as f:
+        f.write(data)
+    img = cv2.imread(path)
+    return None if img is None else img[:, :, ::-1]
+
+
+@pytest.mark.parametrize("case", ["sof9", "sof10", "sof3", "dac"])
+def test_once_refused_codings_decode_as_cv2(case, tmp_path):
+    """Arithmetic-coded sequential (SOF9) and progressive (SOF10) and
+    lossless (SOF3) files, written by libjpeg-turbo
+    (`tests/torch_jpeg/write_codings.py`), and a Huffman file carrying a DAC
+    segment (which libjpeg parses and the Huffman decoder ignores), decode
+    as cv2 decodes them."""
+    from torch_jpeg.write_codings import write_jpeg
+    img = scene(32, 48, 0)
+    if case == "dac":
+        data = _encode(img[:, :, ::-1], [_Q, 80])
+        data = data[:2] + b"\xff\xcc\x00\x04\x00\x11" + data[2:]
+    else:
+        data = write_jpeg(img, **{"sof9": dict(arith=1), "sof10": dict(arith=1, progressive=1),
+                                  "sof3": dict(lossless=(4, 0))}[case])
+        assert bytes([0xFF, 0xC0 + int(case[3:])]) in data
+    want = _cv2_rgb_or_none(data, tmp_path)
+    assert want is not None
+    np.testing.assert_array_equal(decode_jpeg_bytes(data), want)
 
 
 def _adobe_transform(data: bytes, transform: int) -> bytes:
@@ -274,15 +286,15 @@ def test_cut_short_sequential_files_decode_as_cv2(restart, tmp_path):
 
 
 def test_cut_short_progressive_files_raise_unless_complete(tmp_path):
-    """libjpeg smooths the blocks of a progressive file cut before its
-    low-frequency coefficients are complete; that smoothing is not ported,
-    so such a file is refused.  Cut inside its last scans, it decodes as
-    cv2 does."""
+    """Once refused, now decoded: libjpeg-turbo smooths the blocks of a
+    progressive file cut before its low-frequency coefficients are
+    complete, and the port smooths them as it does; cut inside its last
+    scans, the file decodes as cv2 does too.  (Only a file cut inside a
+    marker segment still raises, as cv2 reads no image from it.)"""
     data = _encode(scene(200, 300, 9)[:, :, ::-1], [_Q, 80, _PROG, 1])
-    with pytest.raises(ValueError, match="block smoothing"):
-        decode_jpeg_bytes(data[:int(len(data) * 0.5)], "cut.jpg")
-    cut = data[:int(len(data) * 0.95)]
-    np.testing.assert_array_equal(decode_jpeg_bytes(cut), _cv2_rgb(cut, tmp_path))
+    for frac in (0.5, 0.95):
+        cut = data[:int(len(data) * frac)]
+        np.testing.assert_array_equal(decode_jpeg_bytes(cut, "cut.jpg"), _cv2_rgb(cut, tmp_path))
 
 
 def test_not_a_jpeg_raises_naming_the_file(tmp_path):
