@@ -177,6 +177,19 @@ Phases, each of which raises on failure:
        metric equal to the 8-bit grey layout's (2 packed launches each);
        and one train epoch on the synthetic body model of seed 3
        (generated, not read; exactly 6 packed launches);
+     - every other orbax layout: the committed layout fixtures
+       (`tests/torch_orbax/layouts/`, written by orbax: zarr v2 and zarr3,
+       with and without OCDBT, a bfloat16 state, every dtype, scalars,
+       strings) held to their digests; the orbax slice's directory
+       rewritten by `tests/torch_orbax/relayout.py` as zarr v2 without
+       OCDBT, zarr3 with and without it, and zarr3 with its parameters,
+       statistics and moments in bfloat16, each restore timed; on each,
+       the predict CLI over the 64 cached proxies (npy outputs equal to
+       the `.pt` run's, the bfloat16 one to the `.pt` rounded to bfloat16;
+       exactly 2 face-id launches, held bit for bit); the evaluation CLI
+       on the zarr3 directory and the training CLI resumed one epoch from
+       the per-leaf one, equal to the orbax slice's (4 and 6 packed
+       launches); the resume from the bfloat16 one refused by name;
   5. times: each kernel at B=64, 256x256 (packed: culled eval bodies;
      face-id: unculled, the predict renders' own bodies), beside its bound
      and its plain version; the evaluation's and the predict's wall time;
@@ -2208,7 +2221,187 @@ def orbax_checkpoints(card, train_dir, train_cfg, proxy_dir, eval_data, smpl_dir
                  f"frames ({stored} bytes stored, {out_bytes} bytes out) {min(packed_s):.3f} s "
                  f"({out_bytes / 1e6 / min(packed_s):.0f} MB/s out; runs "
                  f"{', '.join(f'{t:.3f}' for t in packed_s)} s)")
-    return lines, {"packed": eval_launches + l_o, "faceid": faceid["orbax"]}
+    ref = {"dir": orbax_dir, "pt": pt, "predict_pt": outs["pt"], "metrics": metrics["pt"],
+           "resume": (h_p, d_p, s_p)}
+    return lines, {"packed": eval_launches + l_o, "faceid": faceid["orbax"]}, ref
+
+
+# Phase 4n: every other layout orbax writes, rewritten from phase 4l's
+# directory by the test-side writer `tests/torch_orbax/relayout.py`:
+# (zarr3, OCDBT, bfloat16) of each.
+RELAYOUTS = {"v2_dir": (False, False, False), "zarr3_ocdbt": (True, True, False),
+             "zarr3_dir": (True, False, False), "bf16_zarr3_ocdbt": (True, True, True)}
+
+
+def orbax_layouts(card, assets, ref, train_dir, train_cfg, proxy_dir, eval_data, work):
+    """Phase 4n.  (a) Every committed layout fixture
+    (`tests/torch_orbax/layouts/`, written by orbax: zarr v2 and zarr3,
+    with and without OCDBT, a bfloat16 state, every dtype, scalars,
+    strings) restored and held to its digests.  (b) Phase 4l's full-width
+    directory (`ref`) rewritten into `RELAYOUTS`.  (c) On each, the
+    predict CLI over the 64 cached proxies: npy outputs equal to phase
+    4l's `.pt` run (bfloat16: to the `.pt` run with its parameters and
+    statistics rounded to bfloat16 and flax's bfloat16-variance BatchNorm
+    arithmetic), exactly 2 face-id launches, held bit for bit against the
+    plain version on their inputs.  (d) The eval CLI on the zarr3
+    directory and the train CLI resumed one epoch from the per-leaf one,
+    equal to phase 4l's (4 and 6 packed launches).  (e) The resume from
+    the bfloat16 directory refused by name.  (f) `restore_checkpoint`
+    seconds and MB/s of each.  The 3D scatters of `verts_vis/` are not
+    drawn here (phase 4l draws them).  Returns (lines, {packed, faceid:
+    the directories' launches, errs: the face-id checks' depth errors})."""
+    from straps_tpu_torch.cli import run_eval, run_predict, run_train
+    from straps_tpu_torch.models import resnet
+    from straps_tpu_torch.predict import pipeline as pipe
+    from straps_tpu_torch.predict.pipeline import REPOSED_CAM_WP
+    from straps_tpu_torch.render import cuda_raster as CR
+    from straps_tpu_torch.utils.checkpoints import (
+        load_checkpoint, orbax_checkpoint_path, restore_checkpoint,
+    )
+    sys.path.insert(0, os.path.join(HERE, "tests", "torch_orbax"))
+    import relayout
+
+    lines = []
+    # (a) The committed fixtures.
+    fixtures = os.path.join(HERE, "tests", "torch_orbax", "layouts")
+    with open(os.path.join(HERE, "tests", "torch_orbax", "layouts.json")) as f:
+        want = json.load(f)
+    bad = [name for name in sorted(want) if relayout.leaf_digests(
+        restore_checkpoint(os.path.join(fixtures, name))) != want[name]]
+    lines.append(f"orbax layouts: {len(want)} committed fixtures restored, digests "
+                 f"{'equal' if not bad else 'DIFFERENT: ' + ', '.join(bad)}")
+    if bad or len(want) < 10:
+        raise AssertionError(f"orbax layout fixtures differ from their digests: {bad}")
+
+    # (b) Phase 4l's directory in every other layout, and (f) restore times.
+    tree = restore_checkpoint(ref["dir"])
+    dirs, restore_s, sizes = {}, {}, {}
+    for name, (zarr3, use_ocdbt, bf16) in RELAYOUTS.items():
+        dirs[name] = os.path.join(work, name, "straps_model_checkpoint_epoch0")
+        written = relayout.cast_bfloat16(tree) if bf16 else tree
+        relayout.write_layout(dirs[name], written, zarr3, use_ocdbt)
+        sizes[name] = sum(os.path.getsize(os.path.join(d, f))
+                          for d, _, fs in os.walk(dirs[name]) for f in fs)
+        restore_s[name] = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = restore_checkpoint(dirs[name])
+            restore_s[name].append(time.perf_counter() - t0)
+        if relayout.leaf_digests(got) != relayout.leaf_digests(written):
+            raise AssertionError(f"{name}: the rewritten directory does not read back")
+    del tree, got, written
+    lines.append(f"orbax layout times on {card}: restore_checkpoint " + "; ".join(
+        f"{name} {sizes[name]} bytes {min(t):.3f} s ({sizes[name] / 1e6 / min(t):.0f} MB/s; "
+        f"runs {', '.join(f'{x:.3f}' for x in t)} s)" for name, t in restore_s.items()))
+
+    # (c) The predict CLI on each directory.  The bfloat16 one against the
+    # `.pt` with its tensors rounded to bfloat16, every BatchNorm with
+    # flax's bfloat16-variance arithmetic, as its directory loads them.
+    saved = load_checkpoint(ref["pt"])
+
+    def rounded(sd):
+        return {k: v.to(torch.bfloat16).float() if v.is_floating_point() else v
+                for k, v in sd.items()}
+    bf16_pt = os.path.join(work, "bf16_rounded.pt")
+    low_state = dict(saved["state"], model=rounded(saved["state"]["model"]))
+    torch.save(dict(saved, state=low_state, best_params=rounded(saved["best_params"])), bf16_pt)
+    real_vis = pipe.write_verts_vis
+    pipe.write_verts_vis = lambda *a, **k: None
+    outs, faceid, preds = {}, {}, {}
+    try:
+        runs = [(name, dirs[name]) for name in RELAYOUTS] + [("bf16_pt", bf16_pt)]
+        for name, ck in runs:
+            outs[name] = os.path.join(work, f"predict_{name}")
+            resnet.BatchNorm2d.bfloat16_variance = "root" if name == "bf16_pt" else None
+            torch.cuda.synchronize()
+            reset_launches()
+            with contextlib.redirect_stdout(io.StringIO()):
+                preds[name] = run_predict.main(["--input", proxy_dir, "--checkpoint", ck,
+                                                "--out-dir", outs[name], "--device", "cuda"])
+            torch.cuda.synchronize()
+            faceid[name] = CR.faceid_raster_kernel.launches
+    finally:
+        pipe.write_verts_vis = real_vis
+        resnet.BatchNorm2d.bfloat16_variance = None
+    npys = sorted(f for f in os.listdir(ref["predict_pt"]) if f.endswith(".npy"))
+    errs = []
+    for name in RELAYOUTS:
+        base = outs["bf16_pt"] if name.startswith("bf16") else ref["predict_pt"]
+        same = npys and all(np.array_equal(np.load(os.path.join(outs[name], f)),
+                                           np.load(os.path.join(base, f))) for f in npys)
+        lines.append(f"orbax layout {name}: predict's {len(npys)} npy outputs "
+                     f"{'bit-identical' if same else 'DIFFERENT'} to the "
+                     f"{'bfloat16-rounded ' if name.startswith('bf16') else ''}.pt run's, "
+                     f"face-id launches {faceid[name]}")
+        if not same or faceid[name] != 2:
+            raise AssertionError(f"{name}: predict differs from the .pt's")
+        if name in ("v2_dir", "bf16_zarr3_ocdbt"):     # the others' kernel inputs: the same
+            n = len(preds[name]["names"])
+            errs.append(compare_faceid(
+                f"{name} predict rend B={n} 256x256",
+                *vis_faceid_inputs(assets, preds[name]["verts"], preds[name]["cam_wp"],
+                                   256), 256, 256))
+            errs.append(compare_faceid(
+                f"{name} predict reposed B={n} 256x256",
+                *vis_faceid_inputs(assets, preds[name]["reposed_verts"],
+                                   torch.tensor(REPOSED_CAM_WP).expand(n, 3), 256,
+                                   rotate_x180=True), 256, 256))
+
+    # (d) Eval on the zarr3 directory, one-epoch resume from the per-leaf one.
+    torch.cuda.synchronize()
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        metrics = run_eval.main(["--dataset", eval_data, "--checkpoint", dirs["zarr3_dir"],
+                                 "--img-wh", "256", "--batch-size", "32", "--device", "cuda"])
+    torch.cuda.synchronize()
+    eval_launches = CR.packed_raster_kernel.launches
+    lines.append(f"orbax layout zarr3_dir: eval metrics "
+                 f"{'equal' if metrics == ref['metrics'] else 'DIFFERENT'} to phase 4l's, "
+                 f"packed launches {eval_launches}")
+    if metrics != ref["metrics"] or eval_launches != 4:
+        raise AssertionError("eval on the zarr3 directory differs from phase 4l's")
+    d = os.path.join(work, "resume_v2_dir")
+    shutil.copytree(train_dir, d, ignore=shutil.ignore_patterns("*.pt"))
+    shutil.copytree(dirs["v2_dir"], os.path.join(d, orbax_checkpoint_path(
+        train_cfg.model_save_path, 0)))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        with contextlib.chdir(d), contextlib.redirect_stdout(io.StringIO()):
+            st, _, tracker = run_train.main(["--synthetic-data", "--device", "cuda",
+                                             "num_epochs=2", "resume_from_epoch=0",
+                                             "data_parallel_devices=1"])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    resume_launches = CR.packed_raster_kernel.launches
+    got = (tracker.history, state_digest(st), st.step)
+    del st, tracker
+    lines.append(f"orbax layout v2_dir: one-epoch resume, history and state "
+                 f"{'equal' if got == ref['resume'] else 'DIFFERENT'} to phase 4l's, step "
+                 f"{got[2]}, packed launches {resume_launches}")
+    if got != ref["resume"] or resume_launches != 6:
+        raise AssertionError("the resume from the per-leaf directory differs from phase 4l's")
+
+    # (e) The resume from the bfloat16 directory, refused by name.
+    d = os.path.join(work, "resume_bf16")
+    shutil.copytree(train_dir, d, ignore=shutil.ignore_patterns("*.pt"))
+    shutil.copytree(dirs["bf16_zarr3_ocdbt"], os.path.join(d, orbax_checkpoint_path(
+        train_cfg.model_save_path, 0)))
+    try:
+        with contextlib.chdir(d), contextlib.redirect_stdout(io.StringIO()):
+            run_train.main(["--synthetic-data", "--device", "cuda", "num_epochs=2",
+                            "resume_from_epoch=0", "data_parallel_devices=1"])
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    lines.append(f"orbax layout bf16_zarr3_ocdbt: resume refused: {refusal}")
+    if not refusal or "bfloat16 training state is not supported" not in refusal:
+        raise AssertionError("the resume from a bfloat16 state was not refused by name")
+    return lines, {"packed": eval_launches + resume_launches,
+                   "faceid": sum(faceid[name] for name in RELAYOUTS), "errs": errs}
 
 
 def deeplab_forward_flops(R, cin=256, dim=512, convs=8, side=14):
@@ -2967,12 +3160,28 @@ def main() -> int:
     # phase 4c's trained state written as one and read at every entry point
     # that takes a checkpoint.
     t_orbax = time.perf_counter()
-    orbax_lines, orbax_launches = orbax_checkpoints(
+    orbax_lines, orbax_launches, orbax_ref = orbax_checkpoints(
         card, train_dir, train_cfg, proxy_dir, data, smpl_dir, os.path.join(tmp.name, "orbax"))
     for line in orbax_lines:
         print(line)
     print(f"slice: orbax checkpoint phase {time.perf_counter() - t_orbax:.1f} s wall; the "
           f"directory runs' kernel launches {orbax_launches}")
+    torch.cuda.empty_cache()
+
+    # 4n. Every other layout orbax writes: the committed layout fixtures,
+    # and phase 4l's directory rewritten as zarr v2 without OCDBT, zarr3
+    # with and without it, and zarr3 with bfloat16 parameters, read at the
+    # predict, eval and resume entry points.
+    t_layouts = time.perf_counter()
+    layout_lines, layout_launches = orbax_layouts(
+        card, assets, orbax_ref, train_dir, train_cfg, proxy_dir, data,
+        os.path.join(tmp.name, "orbax_layouts"))
+    for line in layout_lines:
+        print(line)
+    faceid_errs += layout_launches.pop("errs")
+    layouts_s = time.perf_counter() - t_layouts
+    print(f"slice: orbax layouts phase {layouts_s:.1f} s wall (target 30 s); the directory "
+          f"runs' kernel launches {layout_launches}")
     torch.cuda.empty_cache()
 
     # 4m. Every PNG and JPEG form cv2.imread reads: the fixtures, the
@@ -3228,16 +3437,19 @@ def main() -> int:
                   f"ddp_launches: phase 4h's ranks (NCCL step and eval, two gloo steps); "
                   f"orbax_launches: phase 4l's eval and one-epoch resume on the orbax "
                   f"directory; codings_launches: phase 4m's two release-layout evals "
-                  f"(8-bit grey and other PNG forms) and its seed-3 train epoch",
+                  f"(8-bit grey and other PNG forms) and its seed-3 train epoch; "
+                  f"relayout_launches: phase 4n's eval on the zarr3 directory and one-epoch "
+                  f"resume from the per-leaf zarr v2 one",
         "launches": (launches + train_launches + r50_launches + ddp_launches
-                     + orbax_launches["packed"] + codings_packed),
+                     + orbax_launches["packed"] + codings_packed + layout_launches["packed"]),
         "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "train_ms": train_kernel_ms, "train_plain_ms": train_plain_ms,
         "train_bound_ms": train_bound_ms, "train_bound_by": train_bound_by,
         "release_eval_launches": release_launches,
         "r50_silhouette_train_launches": r50_launches, "ddp_launches": ddp_launches,
-        "orbax_launches": orbax_launches["packed"], "codings_launches": codings_packed}, {
+        "orbax_launches": orbax_launches["packed"], "codings_launches": codings_packed,
+        "relayout_launches": layout_launches["packed"]}, {
         "name": "raster_faceid", "route": "cuda",
         "source": "straps_tpu_torch/csrc/raster_faceid.cu",
         "replaces": "straps_tpu/render/pallas_raster.py:50",
@@ -3249,9 +3461,11 @@ def main() -> int:
                   f"PointRend; native_cached_launches: the predict of the {n} cached "
                   f"proxies read by the native reader, 3D scatters written; orbax_launches: "
                   f"phase 4l's predict of the {n} cached proxies on the orbax directory; "
-                  f"codings_path_launches: phase 4m's predict over PNG and JPEG forms",
+                  f"codings_path_launches: phase 4m's predict over PNG and JPEG forms; "
+                  f"relayout_path_launches: phase 4n's predicts of the {n} cached proxies on "
+                  f"the four rewritten directories",
         "launches": (faceid_launches + r50_predict_launches + jpeg_launches + cached_vis_launches
-                     + orbax_launches["faceid"] + codings_launches),
+                     + orbax_launches["faceid"] + codings_launches + layout_launches["faceid"]),
         "max_abs_err": max(faceid_errs),
         "ms": faceid_ms,
         "plain_ms": faceid_plain_ms, "bound_ms": faceid_bound_ms,
@@ -3260,7 +3474,8 @@ def main() -> int:
         "r50_predict_launches": r50_predict_launches, "jpeg_path_launches": jpeg_launches,
         "native_cached_launches": cached_vis_launches,
         "orbax_launches": orbax_launches["faceid"],
-        "codings_path_launches": codings_launches}]}))
+        "codings_path_launches": codings_launches,
+        "relayout_path_launches": layout_launches["faceid"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,8 @@ Adam state <-> this package's state dict or training state, and reference
 `.tar` checkpoints.
 
 Counterpart of `straps_tpu/models/convert.py` (numpy only: flax variables
-are nested dicts of numpy arrays).  Layouts: conv HWIO <-> OIHW (a
+are nested dicts of numpy arrays; a bfloat16 leaf, a torch.bfloat16
+tensor, is widened to float32).  Layouts: conv HWIO <-> OIHW (a
 grouped kernel's (kh, kw, in/groups, out) <-> (out, in/groups, kh, kw)),
 dense (in, out) <-> (out, in).
 """
@@ -12,6 +13,15 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+
+def host_array(v) -> np.ndarray:
+    """A leaf of a restored flax tree as a numpy array: a torch.bfloat16
+    tensor (an orbax checkpoint's bfloat16 leaf) widened to float32
+    exactly, as flax promotes a bfloat16 parameter against float32."""
+    if isinstance(v, torch.Tensor):
+        return (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu().numpy()
+    return np.asarray(v)
 
 
 def flax_to_torch_state_dict(variables: dict) -> Dict[str, np.ndarray]:
@@ -57,12 +67,32 @@ def flax_to_torch_state_dict(variables: dict) -> Dict[str, np.ndarray]:
             if isinstance(v, dict):
                 walk(coll, v, path + (k,))
             else:
-                leaf(coll, path + (k,), np.ascontiguousarray(np.asarray(v)))
+                leaf(coll, path + (k,), np.ascontiguousarray(host_array(v)))
 
     for coll in ("params", "batch_stats"):
         if coll in variables:
             walk(coll, variables[coll], ())
     return out
+
+
+def bfloat16_variance_layers(variables: dict) -> Dict[str, str]:
+    """{module name, in `flax_to_torch_state_dict`'s naming: "root" or
+    "sum"} of the BatchNorm layers of flax `{"params", "batch_stats"}`
+    whose running variance is bfloat16 (a torch.bfloat16 tensor): flax
+    computes their `rsqrt(var + eps)` in bfloat16, rounding the root too
+    when the scale is bfloat16 ("root")
+    (`models/resnet.py::BatchNorm2d.bfloat16_variance`)."""
+    def low(v):
+        return isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16
+
+    def flags(stats, params):
+        return {k: flags(v, params.get(k, {})) if isinstance(v, dict) else
+                np.asarray(2 if low(v) and low(params.get("scale")) else int(low(v)))
+                for k, v in stats.items()}
+    marked = flax_to_torch_state_dict(
+        {"batch_stats": flags(variables["batch_stats"], variables.get("params", {}))})
+    return {k[:-len(".running_var")]: "root" if v.item() == 2 else "sum"
+            for k, v in marked.items() if k.endswith(".running_var") and v.item()}
 
 
 def torch_state_dict_to_flax(state: Mapping[str, np.ndarray]) -> dict:
@@ -146,7 +176,7 @@ def opt_state_from_optax(adam: Mapping[str, object], model, log_vars: Mapping[st
         tree, lv = adam[name]
         sd = flax_to_torch_state_dict({"params": tree})
         moments.append([sd[k] for k, _ in model.named_parameters()]
-                       + [np.asarray(lv[k]) for k in log_vars])
+                       + [host_array(lv[k]) for k in log_vars])
     return {i: {"step": step.clone(),
                 "exp_avg": torch.tensor(np.float32(m)),
                 "exp_avg_sq": torch.tensor(np.float32(v))}
@@ -194,7 +224,7 @@ def train_state_from_flax(params: dict, batch_stats: dict, log_vars: Dict[str, o
     sd = flax_to_torch_state_dict({"params": params, "batch_stats": batch_stats})
     model.load_state_dict(state_dict_to_tensors(sd), strict=True)
     model.to(device)
-    lv = {k: torch.tensor(np.float32(np.asarray(v)), device=device, requires_grad=True)
+    lv = {k: torch.tensor(np.float32(host_array(v)), device=device, requires_grad=True)
           for k, v in log_vars.items()}
     state = create_train_state(model, lv, lr)
     if opt_state is not None:

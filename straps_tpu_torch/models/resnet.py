@@ -28,7 +28,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     takes the unbiased one, and with flax's rounding, which the gradients
     of channels of small variance follow.  The output is
     `((x - mean) * (rsqrt(var + eps) * weight) + bias)` in float32, cast
-    back to the input's dtype.  Evaluation mode is torch's.
+    back to the input's dtype.  Evaluation mode is torch's; with
+    `bfloat16_variance` set (weights whose flax running variance was
+    bfloat16, `models/convert.py::bfloat16_variance_layers`) it is flax's
+    arithmetic under jit on the CPU on such a variance: `var + eps` in
+    bfloat16 (eps rounded to it, the sum rounded), its `rsqrt` rounded to
+    bfloat16 too where the scale was bfloat16 ("root") and not where it was
+    float32 ("sum"), the rest in float32.
 
     With a data mesh (`mesh`, set within `use_data_mesh`) the training-mode
     statistics are the global batch's, as flax's over a sharded batch: one
@@ -37,10 +43,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     update alike on every rank."""
 
     mesh = None
+    bfloat16_variance = None          # None, "sum" or "root"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
+            if not self.bfloat16_variance:
+                return super().forward(x)
+            eps = torch.tensor(self.eps, dtype=torch.bfloat16)
+            total = self.running_var.to(torch.bfloat16) + eps
+            if self.bfloat16_variance == "root":
+                root = torch.rsqrt(total).float()
+            else:
+                root = torch.rsqrt(total.float())
+            mul = root * self.weight
+            y = ((x.float() - self.running_mean[:, None, None]) * mul[:, None, None]
+                 + self.bias[:, None, None])
+            return y.to(x.dtype)
         xf = x.float()
         dims = (0, 2, 3)
         if self.mesh is None:

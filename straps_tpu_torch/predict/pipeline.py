@@ -26,7 +26,8 @@ from straps_tpu_torch.geometry.camera import (
 from straps_tpu_torch.geometry.joints import undo_keypoint_normalisation
 from straps_tpu_torch.geometry.rotations import rot6d_to_rotmat
 from straps_tpu_torch.models.convert import (
-    flax_to_torch_state_dict, load_reference_checkpoint, state_dict_to_tensors,
+    bfloat16_variance_layers, flax_to_torch_state_dict, load_reference_checkpoint,
+    state_dict_to_tensors,
 )
 from straps_tpu_torch.models.regressor import (
     SingleInputRegressor, build_regressor, init_random_weights,
@@ -157,6 +158,9 @@ def load_regressor_variables(cfg: PredictConfig, assets: SmplAssets,
             params, batch_stats = tree["params"], tree["batch_stats"]
         model.load_state_dict(state_dict_to_tensors(flax_to_torch_state_dict(
             {"params": params, "batch_stats": batch_stats})), strict=True)
+        for name, mode in bfloat16_variance_layers(
+                {"params": params, "batch_stats": batch_stats}).items():
+            model.get_submodule(name).bfloat16_variance = mode
         meta = tree.get("meta") or {}
         if "heatmap_mode" in meta:
             trained_mode = decode_meta_str(meta["heatmap_mode"])

@@ -119,7 +119,7 @@ def train(cfg: TrainConfig, assets=None, max_steps_per_epoch: Optional[int] = No
     load_logs = False
     if cfg.resume_from_epoch is not None:
         restored = load_checkpoint(resume_path(cfg.model_save_path, cfg.resume_from_epoch),
-                                   task_order=cfg.losses_on)
+                                   task_order=cfg.losses_on, resume=True)
         state.load_state_dict(restored["state"])
         current_epoch = int(restored["epoch"]) + 1
         best_epoch = int(restored["best_epoch"])

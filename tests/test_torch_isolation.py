@@ -3,8 +3,8 @@ detector front end in `perception/`, DensePose included, the image IO,
 the synthetic body model's generator in `smpl/fixtures.py`, the orbax
 checkpoint reader in `utils/` and the dataset loaders in `eval_harness/`
 included), nor `chip_smoke.py`, imports JAX, flax, orbax,
-tensorstore, zstandard, numcodecs, cv2, matplotlib, PIL or the JAX
-package (the machine with the card has none of them), nor the orbax
+tensorstore, zstandard, numcodecs, ml_dtypes, cv2, matplotlib, PIL or
+the JAX package (the machine with the card has none of them), nor the orbax
 export tool `tools/export_jax_checkpoint.py`, which runs where JAX is
 installed and lies outside the package."""
 
@@ -17,7 +17,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "cv2", "matplotlib", "PIL",
              "straps_tpu", "tools", "export_jax_checkpoint", "tensorstore", "zstandard",
-             "numcodecs")
+             "numcodecs", "ml_dtypes")
 FILES = sorted((ROOT / "straps_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -47,7 +47,8 @@ def test_port_files_exist():
                       "parallel/__init__", "parallel/mesh", "parallel/dryrun",
                       "utils/jpeg", "utils/native_build", "data/native_io", "render/figures",
                       "render/tick_glyphs", "cli/run_parity_gate", "utils/zstd",
-                      "utils/ocdbt", "utils/checkpoints", "smpl/fixtures", "smpl/assets"]):
+                      "utils/ocdbt", "utils/checkpoints", "smpl/fixtures", "smpl/assets",
+                      "ops/__init__", "utils/bands"]):
         assert f"straps_tpu_torch/{module}.py" in names, module
     for source in ("jpeg_decode.cpp", "jpeg_aritab.h", "png_decode.cpp", "straps_io.cpp",
                    "zstd_decode.cpp"):

@@ -23,8 +23,10 @@ here only.
 - `save_orbax_checkpoint` is read by the JAX package's
   `restore_checkpoint(path, template)`, every leaf equal, and tensorstore
   lists the same keys as a JAX save of the same tree.
-- zarr3, bfloat16 leaves, other compressors, a missing `_METADATA` and a
-  corrupt node are refused by name.
+- Other compressors (gzip, blosc) and zarr3 codecs, a missing
+  `_METADATA`, a corrupt node and numbered manifests are refused by name;
+  bfloat16 leaves and zarr3 checkpoints are read
+  (`tests/test_torch_orbax_layouts.py` holds every layout).
 """
 
 import functools
@@ -63,6 +65,7 @@ from test_torch_orbax_export import IMG, LR, _load_tool, exported  # noqa: F401 
 from test_torch_parity_gate import (  # noqa: F401  (fixtures)
     _both_gates, float32_encoders, stand_ins,
 )
+from torch_orbax.relayout import write_layout
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -373,18 +376,38 @@ def _refused(tmp_path, tree, name="ckpt", zarray=None):
 
 
 def test_refusals_name_the_cause(tmp_path):
+    """Other compressors and codecs, a missing `_METADATA`, a corrupt node
+    and numbered manifests are refused by name; bfloat16 leaves and zarr3
+    checkpoints, refused before, are read."""
     tree = {"a": np.arange(6, dtype=np.float32)}
     with pytest.raises(ValueError, match="gzip"):
         restore_checkpoint(_refused(tmp_path, tree, "gz", {"compressor": {"id": "gzip"}}))
-    with pytest.raises(ValueError, match="bfloat16"):
-        restore_checkpoint(_refused(tmp_path, tree, "bf", {"dtype": "bfloat16"}))
+    with pytest.raises(ValueError, match="blosc"):
+        restore_checkpoint(_refused(tmp_path, tree, "blosc", {"compressor": {"id": "blosc"}}))
+    # bfloat16: the 16 bits of each value, read as a torch.bfloat16 tensor.
+    bits = torch.arange(6, dtype=torch.float32).to(torch.bfloat16)
+    bf = str(tmp_path / "bf")
+    write_layout(bf, {"a": bits}, zarr3=False, use_ocdbt=True)
+    got = restore_checkpoint(bf)["a"]
+    assert got.dtype == torch.bfloat16 and torch.equal(got, bits)
     with pytest.raises(ValueError, match="not written"):
         write_tree(str(tmp_path / "bf16"), {"a": np.zeros(3, np.float16)})
-    z3 = _refused(tmp_path, tree, "z3")
-    meta = json.load(open(os.path.join(z3, "_METADATA")))
-    json.dump({**meta, "use_zarr3": True}, open(os.path.join(z3, "_METADATA"), "w"))
-    with pytest.raises(ValueError, match="zarr3"):
-        restore_checkpoint(z3)
+    # zarr3: read; a codec it does not know (and crc32c as an array codec)
+    # is refused by name.
+    z3 = str(tmp_path / "z3")
+    write_layout(z3, tree, zarr3=True, use_ocdbt=True)
+    assert restore_checkpoint(z3)["a"].tobytes() == tree["a"].tobytes()
+    for codec in ("gzip", "transpose", "crc32c"):
+        reader = ocdbt.OcdbtReader(z3)
+        items = {k: reader.read(k) for k in reader.list()}
+        meta = json.loads(items[b"a/zarr.json"])
+        meta["codecs"] = meta["codecs"] + [{"name": codec}]
+        bad = str(tmp_path / f"z3_{codec}")
+        shutil.copytree(z3, bad)
+        shutil.rmtree(os.path.join(bad, "d"))
+        ocdbt.write_database(bad, {**items, b"a/zarr.json": json.dumps(meta).encode()})
+        with pytest.raises(ValueError, match=f"codec '{codec}' is not read"):
+            restore_checkpoint(bad)
     with pytest.raises(ValueError, match="_METADATA"):
         restore_checkpoint(str(tmp_path))
     # A flipped byte in the manifest fails its CRC-32C.
