@@ -190,6 +190,18 @@ Phases, each of which raises on failure:
        on the zarr3 directory and the training CLI resumed one epoch from
        the per-leaf one, equal to the orbax slice's (4 and 6 packed
        launches); the resume from the bfloat16 one refused by name;
+     - the port as `pip install .` installs it: the files that
+       `pyproject.toml` selects (`utils/package_copy.py`) copied outside
+       the repository, and a fresh process whose only copy of the port is
+       that one (its working directory outside the repository too):
+       every subpackage imported and every name of every `__all__` and
+       `JAX_COUNTERPARTS` resolved; both kernels and the host C++ built
+       from the copy's own `csrc/` into the copy's `_build/` (each build
+       timed); the evaluation CLI over the evaluation slice's 64 samples
+       and the predict CLI over the predict slice's 64 cached proxies at
+       full width, metrics and npy outputs equal to those slices', exactly
+       4 packed and 2 face-id launches, each held bit for bit against its
+       plain version (both entries' `installed_launches`);
   5. times: each kernel at B=64, 256x256 (packed: culled eval bodies;
      face-id: unculled, the predict renders' own bodies), beside its bound
      and its plain version; the evaluation's and the predict's wall time;
@@ -226,7 +238,7 @@ Phases, each of which raises on failure:
      `jpeg_path_launches` and `native_cached_launches` count phase 4i's
      launches, which its `launches` include; both entries'
      `orbax_launches` count phase 4l's launches on the orbax directory,
-     which their `launches` include.
+     which their `launches` include, and `installed_launches` phase 4o's.
 The whole run's wall time, then the card's name and power limit come
 before the `kernels` JSON, which is on the line before the last; the result
 JSON is last.
@@ -825,6 +837,9 @@ def profile_run(card, label, n, unit, run, top=10, host_top=8):
 DET_FRAME, DET_TEST = 512, 800
 # The host C++ of `straps_tpu_torch/csrc/`, built with g++ beside the kernels.
 HOST_SOURCES = ("jpeg_decode", "png_decode", "straps_io", "zstd_decode")
+# The port's subpackages with a `JAX_COUNTERPARTS` surface.
+SURFACES = ("augment", "data", "eval_harness", "geometry", "losses", "metrics", "models", "ops",
+            "parallel", "perception", "predict", "render", "smpl", "train")
 DET_SEED = 1
 RPN_DELTA_SCALE = 0.1
 
@@ -2404,6 +2419,168 @@ def orbax_layouts(card, assets, ref, train_dir, train_cfg, proxy_dir, eval_data,
                    "faceid": sum(faceid[name] for name in RELAYOUTS), "errs": errs}
 
 
+# Phase 4o: the port as `pip install .` installs it.  The child process
+# loads this file by path (not as `__main__`) from a directory that holds
+# only the installed files.
+def installed_copy_child(site, spec_json):
+    """Phase 4o's child: in a process whose `sys.path` starts with `site`
+    (the installed files), resolve every surface, build every kernel and
+    host library from the copy's `csrc/`, run the eval and predict CLIs at
+    full width with each kernel launch recorded, and hold each launch bit
+    for bit against its plain version.  Prints one `installed-copy:` JSON
+    line; raises on any fault."""
+    import importlib
+
+    spec = json.loads(spec_json)
+    t_child = time.perf_counter()
+    import straps_tpu_torch
+    pkg = os.path.dirname(os.path.abspath(straps_tpu_torch.__file__))
+    if pkg != os.path.join(site, "straps_tpu_torch"):
+        raise AssertionError(f"straps_tpu_torch imported from {pkg}, not from {site}")
+    names = 0
+    for sub in SURFACES:
+        module = importlib.import_module(f"straps_tpu_torch.{sub}")
+        for name in module.__all__:
+            getattr(module, name)
+        for counterpart in module.JAX_COUNTERPARTS.values():
+            if not isinstance(counterpart, str):
+                for name in counterpart:
+                    getattr(module, name)
+        names += len(module.JAX_COUNTERPARTS)
+    from straps_tpu_torch.cli import run_eval, run_predict
+    from straps_tpu_torch.render import cuda_raster as CR
+    from straps_tpu_torch.utils import native_build
+
+    def timed(build, arg):
+        t = time.perf_counter()
+        path = build(arg)
+        return getattr(path, "_name", path), time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(CR.KERNELS) + len(HOST_SOURCES)) as pool:
+        jobs = ([pool.submit(timed, CR.build_library, k.source) for k in CR.KERNELS]
+                + [pool.submit(timed, native_build.host_library, h) for h in HOST_SOURCES])
+        builds = [job.result() for job in jobs]
+    build_dir = os.path.join(pkg, "_build")
+    for path, _ in builds:
+        if os.path.dirname(path) != build_dir:
+            raise AssertionError(f"{path} was not built into the copy's {build_dir}")
+    for kernel in CR.KERNELS:
+        if not kernel.source.startswith(pkg):
+            raise AssertionError(f"{kernel.name} builds from {kernel.source}, outside the copy")
+        kernel.function()
+
+    recorded = []
+    for kernel in CR.KERNELS:
+        cls = type(kernel)
+
+        def record(self, *args, _call=cls.__call__):
+            out = _call(self, *args)
+            recorded.append((self.name, [a.clone() if torch.is_tensor(a) else a for a in args],
+                             [t.clone() for t in (out if isinstance(out, tuple) else (out,))]))
+            return out
+        cls.__call__ = record
+
+    def cli(main, argv):
+        for kernel in CR.KERNELS:
+            kernel.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            result = main(argv)
+        torch.cuda.synchronize()
+        return result, {k.name: k.launches for k in CR.KERNELS}
+
+    t0 = time.perf_counter()
+    metrics, eval_launches = cli(run_eval.main, [
+        "--dataset", spec["data"], "--checkpoint", spec["ckpt"], "--img-wh", "256",
+        "--batch-size", str(spec["batch"]), "--device", "cuda"])
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, predict_launches = cli(run_predict.main, [
+        "--input", spec["proxy_dir"], "--checkpoint", spec["ckpt_pred"], "--out-dir",
+        spec["out_dir"], "--device", "cuda"])
+    predict_s = time.perf_counter() - t0
+
+    checks = []
+    for name, args, out in recorded:
+        if name == "raster_packed":
+            want = (CR.rasterize_packed_reference(*args),)
+        else:
+            want = CR.rasterize_faceid_reference(*args)
+        checks.append({"kernel": name, "B": int(args[0].shape[0]),
+                       "identical": all(torch.equal(a, b) for a, b in zip(out, want))})
+    print("installed-copy: " + json.dumps({
+        "package": pkg, "names": names, "metrics": metrics,
+        "builds": {os.path.basename(path): secs for path, secs in builds},
+        "eval_launches": eval_launches, "predict_launches": predict_launches,
+        "eval_s": eval_s, "predict_s": predict_s, "checks": checks,
+        "child_s": time.perf_counter() - t_child}))
+
+
+def installed_copy(card, spec, want_metrics, want_out_dir):
+    """Phase 4o: copy the installed files outside the repository, run
+    `installed_copy_child` on them in a fresh process, and hold its
+    outputs to the evaluation and predict slices'.  Returns (lines,
+    {kernel: launches})."""
+    from straps_tpu_torch.utils.package_copy import copy_package
+
+    site = tempfile.mkdtemp(prefix="straps_installed_")
+    work = tempfile.mkdtemp(prefix="straps_installed_cwd_")
+    try:
+        files = copy_package(HERE, site)
+        spec = dict(spec, out_dir=os.path.join(work, "predict"))
+        code = ("import importlib.util, sys\n"
+                f"sys.path.insert(0, {site!r})\n"
+                f"spec = importlib.util.spec_from_file_location('chip_smoke_installed', "
+                f"{os.path.abspath(__file__)!r})\n"
+                "module = importlib.util.module_from_spec(spec)\n"
+                "spec.loader.exec_module(module)\n"
+                f"module.installed_copy_child({site!r}, {json.dumps(spec)!r})\n")
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=work, env=env,
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the installed copy's process failed ({proc.returncode}):\n"
+                                 f"{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}")
+        (line,) = [x for x in proc.stdout.splitlines() if x.startswith("installed-copy: ")]
+        got = json.loads(line[len("installed-copy: "):])
+        npys = sorted(f for f in os.listdir(want_out_dir) if f.endswith(".npy"))
+        same_npy = len(npys) == 4 * spec["n"] and all(
+            np.array_equal(np.load(os.path.join(want_out_dir, f)),
+                           np.load(os.path.join(spec["out_dir"], f))) for f in npys)
+    finally:
+        shutil.rmtree(site, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
+    csrc = sorted(f for f in files if "/csrc/" in f)
+    kernels = {name: got["eval_launches"][name] + got["predict_launches"][name]
+               for name in got["eval_launches"]}
+    identical = [c for c in got["checks"] if c["identical"]]
+    lines = [
+        f"installed copy: {len(files)} files ({len(csrc)} in csrc/: "
+        f"{', '.join(os.path.basename(f) for f in csrc)}), the port imported from "
+        f"{got['package']}, {got['names']} JAX names resolved through the surfaces",
+        f"installed copy: builds into the copy's _build/ on {card}, each timed in parallel: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in got["builds"].items()),
+        f"installed copy: eval of {spec['n']} samples {got['eval_s']:.3f} s, metrics "
+        f"{'equal' if got['metrics'] == want_metrics else 'DIFFERENT'} to the evaluation "
+        f"slice's, launches {got['eval_launches']}; predict of {spec['n']} cached proxies "
+        f"{got['predict_s']:.3f} s, npy outputs {'bit-identical' if same_npy else 'DIFFERENT'} "
+        f"to the predict slice's, launches {got['predict_launches']}; "
+        f"{len(identical)} of {len(got['checks'])} launches bit-identical to their plain "
+        f"versions ({[(c['kernel'], c['B']) for c in got['checks']]}); child process "
+        f"{got['child_s']:.1f} s of {wall:.1f} s wall"]
+    if got["metrics"] != want_metrics or not same_npy:
+        raise AssertionError("the installed copy's eval or predict differs from the slices'")
+    if (got["eval_launches"] != {"raster_packed": 4, "raster_faceid": 0}
+            or got["predict_launches"] != {"raster_packed": 0, "raster_faceid": 2}
+            or len(got["checks"]) != 6 or len(identical) != 6):
+        raise AssertionError(f"the installed copy's launches: eval {got['eval_launches']}, "
+                             f"predict {got['predict_launches']}, checks {got['checks']}")
+    if len(csrc) != 8 or any("_build" in f.split("/") for f in files):
+        raise AssertionError(f"the installed copy's csrc/: {csrc}")
+    return lines, kernels
+
+
 def deeplab_forward_flops(R, cin=256, dim=512, convs=8, side=14):
     """Multiply-adds x 2 of the DeepLab head + predictor forward on R ROIs:
     ASPP's 1x1, three 3x3 and pooled branches and its projection, the
@@ -3196,6 +3373,17 @@ def main() -> int:
     print(f"slice: image codings phase {time.perf_counter() - t_codings:.1f} s wall")
     torch.cuda.empty_cache()
 
+    # 4o. The port as `pip install .` installs it, in a process of its own:
+    # the evaluation and predict slices again, from the installed files.
+    t_installed = time.perf_counter()
+    installed_lines, installed_launches = installed_copy(
+        card, {"data": data, "ckpt": ckpt, "batch": batch, "n": n, "proxy_dir": proxy_dir,
+               "ckpt_pred": ckpt_pred}, final, out_dir)
+    for line in installed_lines:
+        print(line)
+    print(f"slice: installed copy phase {time.perf_counter() - t_installed:.1f} s wall; kernel "
+          f"launches {installed_launches}")
+
     # 5. Times.
     flat, bounds, attr = smpl_kernel_inputs(assets, 256, 64, seed=5)
     kernel_ms = cuda_ms(lambda: CR.packed_raster_kernel(flat, bounds, attr, 256, 256), 200)
@@ -3439,9 +3627,11 @@ def main() -> int:
                   f"directory; codings_launches: phase 4m's two release-layout evals "
                   f"(8-bit grey and other PNG forms) and its seed-3 train epoch; "
                   f"relayout_launches: phase 4n's eval on the zarr3 directory and one-epoch "
-                  f"resume from the per-leaf zarr v2 one",
+                  f"resume from the per-leaf zarr v2 one; installed_launches: phase 4o's eval "
+                  f"from the installed files, in a process of its own",
         "launches": (launches + train_launches + r50_launches + ddp_launches
-                     + orbax_launches["packed"] + codings_packed + layout_launches["packed"]),
+                     + orbax_launches["packed"] + codings_packed + layout_launches["packed"]
+                     + installed_launches["raster_packed"]),
         "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "train_ms": train_kernel_ms, "train_plain_ms": train_plain_ms,
@@ -3449,7 +3639,8 @@ def main() -> int:
         "release_eval_launches": release_launches,
         "r50_silhouette_train_launches": r50_launches, "ddp_launches": ddp_launches,
         "orbax_launches": orbax_launches["packed"], "codings_launches": codings_packed,
-        "relayout_launches": layout_launches["packed"]}, {
+        "relayout_launches": layout_launches["packed"],
+        "installed_launches": installed_launches["raster_packed"]}, {
         "name": "raster_faceid", "route": "cuda",
         "source": "straps_tpu_torch/csrc/raster_faceid.cu",
         "replaces": "straps_tpu/render/pallas_raster.py:50",
@@ -3463,9 +3654,11 @@ def main() -> int:
                   f"phase 4l's predict of the {n} cached proxies on the orbax directory; "
                   f"codings_path_launches: phase 4m's predict over PNG and JPEG forms; "
                   f"relayout_path_launches: phase 4n's predicts of the {n} cached proxies on "
-                  f"the four rewritten directories",
+                  f"the four rewritten directories; installed_launches: phase 4o's predict of "
+                  f"the {n} cached proxies from the installed files, in a process of its own",
         "launches": (faceid_launches + r50_predict_launches + jpeg_launches + cached_vis_launches
-                     + orbax_launches["faceid"] + codings_launches + layout_launches["faceid"]),
+                     + orbax_launches["faceid"] + codings_launches + layout_launches["faceid"]
+                     + installed_launches["raster_faceid"]),
         "max_abs_err": max(faceid_errs),
         "ms": faceid_ms,
         "plain_ms": faceid_plain_ms, "bound_ms": faceid_bound_ms,
@@ -3475,7 +3668,8 @@ def main() -> int:
         "native_cached_launches": cached_vis_launches,
         "orbax_launches": orbax_launches["faceid"],
         "codings_path_launches": codings_launches,
-        "relayout_path_launches": layout_launches["faceid"]}]}))
+        "relayout_path_launches": layout_launches["faceid"],
+        "installed_launches": installed_launches["raster_faceid"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

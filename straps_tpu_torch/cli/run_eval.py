@@ -88,5 +88,13 @@ def evaluate(args, cfg: PredictConfig):
     return {k: float(v) for k, v in final.items()}
 
 
+def script() -> int:
+    """The `straps-eval-torch` console script: `main` over the process's arguments,
+    exit status 0 on success (`main` returns its metrics, which
+    `sys.exit` would print and turn into status 1)."""
+    main()
+    return 0
+
+
 if __name__ == "__main__":
     main()

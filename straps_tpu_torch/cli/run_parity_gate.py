@@ -20,9 +20,13 @@ named tolerances, exiting 1 on any FAIL:
         --densepose-checkpoint densepose_rcnn_R_101_fpn_s1x.pkl \\
         --input demo_proxies/ --expected reference_outputs/
 
-Rows, details, tolerances and exit codes are the JAX gate's.  Runs on
-CUDA unless `--device cpu` is given.  `--checkpoint` also takes the JAX
-package's orbax checkpoint directories, read without JAX
+Rows, details, tolerances and exit codes are the JAX gate's, with two
+repairs: a regressor forward or flax round trip that fails after the
+checkpoint loaded is a FAIL row (the JAX gate raises there), and the
+demo predict counts each predicted image's own `<name>_verts.npy`, not
+every such file in `--out-dir` (the JAX gate counts an earlier run's
+too).  Runs on CUDA unless `--device cpu` is given.  `--checkpoint` also
+takes the JAX package's orbax checkpoint directories, read without JAX
 (`utils/checkpoints.py`).  `tests/test_torch_parity_gate.py`
 rehearses the gate on stand-ins written in the real formats and holds it
 against the JAX gate.
@@ -147,13 +151,11 @@ def gate_regressor_checkpoint(checkpoint: Optional[str], assets, resnet_layers: 
     """Load the reference `.tar` (or a port `.pt`, or the JAX package's
     orbax directory) through the predict
     path's loader, run a forward on zeros at 256², and round-trip the
-    weights through the flax layout (`models/convert.py`) exactly."""
+    weights through the flax layout (`models/convert.py`) exactly.  A
+    failure in any of the three is a FAIL row, never a raise."""
     import torch
 
     from straps_tpu_torch.config import PredictConfig
-    from straps_tpu_torch.models.convert import (
-        flax_to_torch_state_dict, torch_state_dict_to_flax,
-    )
     from straps_tpu_torch.predict.pipeline import load_regressor_variables
 
     if checkpoint is None:
@@ -169,16 +171,33 @@ def gate_regressor_checkpoint(checkpoint: Optional[str], assets, resnet_layers: 
     except Exception as e:  # noqa: BLE001
         rows.append(("regressor_checkpoint", False, f"{type(e).__name__}: {e}", "converts"))
         return
-    with torch.no_grad():
-        out = model(torch.zeros(1, 256, 256, 18, device=assets.device))
-    finite = all(bool(o.isfinite().all()) for o in out)
+    try:
+        with torch.no_grad():
+            out = model(torch.zeros(1, 256, 256, 18, device=assets.device))
+        finite = all(bool(o.isfinite().all()) for o in out)
+    except Exception as e:  # noqa: BLE001
+        rows.append(("regressor_checkpoint", False, f"{type(e).__name__}: {e}",
+                     "converts, forward finite"))
+        return
     n_params = sum(p.numel() for p in model.parameters())
     rows.append(("regressor_checkpoint", finite,
                  f"{n_params / 1e6:.1f}M params, heatmap_mode={mode}, forward finite",
                  "converts, forward finite"))
+    try:
+        ok, n = _flax_round_trip(model)
+        detail = f"{n} tensors bit-identical" if ok else "mismatch"
+    except Exception as e:  # noqa: BLE001
+        ok, detail = False, f"{type(e).__name__}: {e}"
+    rows.append(("regressor_roundtrip", ok, detail, "flax->torch->flax exact"))
 
-    # Lossless round trip: flax layout -> torch state dict -> flax layout,
-    # and the torch tensors it carries back.
+
+def _flax_round_trip(model) -> Tuple[bool, int]:
+    """Lossless round trip: flax layout -> torch state dict -> flax layout,
+    and the torch tensors it carries back.  Returns (exact, tensor count)."""
+    from straps_tpu_torch.models.convert import (
+        flax_to_torch_state_dict, torch_state_dict_to_flax,
+    )
+
     state = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
     flax = torch_state_dict_to_flax(state)
     back_state = flax_to_torch_state_dict(flax)
@@ -190,9 +209,7 @@ def gate_regressor_checkpoint(checkpoint: Optional[str], assets, resnet_layers: 
         for (pw, vw), (pg, vg) in zip(want, got))
     ok = ok and all(np.array_equal(back_state[k], state[k]) for k in back_state
                     if not k.endswith("num_batches_tracked"))
-    rows.append(("regressor_roundtrip", ok,
-                 f"{len(want)} tensors bit-identical" if ok else "mismatch",
-                 "flax->torch->flax exact"))
+    return ok, len(want)
 
 
 def gate_detector_checkpoint(path: Optional[str], model_cls, name: str, device,
@@ -235,7 +252,9 @@ def gate_detector_checkpoint(path: Optional[str], model_cls, name: str, device,
 
 def gate_demo_predict(cfg, device, rows: List[GateRow]):
     """Run the whole predict pipeline (the reference's `run_predict.py`
-    surface), renders off, and require finite outputs on disk."""
+    surface), renders off, and require a finite `<name>_verts.npy` on disk
+    for each predicted image (other files in `out_dir`, from an earlier
+    run, are not counted)."""
     from straps_tpu_torch.predict.pipeline import predict_3d
 
     try:
@@ -245,11 +264,19 @@ def gate_demo_predict(cfg, device, rows: List[GateRow]):
         return None
     finite = all(bool(np.all(np.isfinite(np.asarray(out[k]))))
                  for k in ("verts", "shape", "pose_rotmats", "cam_wp"))
-    n_npy = len(glob.glob(os.path.join(cfg.out_dir, "*_verts.npy")))
+    n_npy = sum(_finite_npy(os.path.join(cfg.out_dir, f"{name}_verts.npy"))
+                for name in out["names"])
     rows.append(("demo_predict", finite and n_npy == len(out["names"]),
                  f"{len(out['names'])} images -> {n_npy} verts.npy, finite",
                  "runs, outputs finite"))
     return out
+
+
+def _finite_npy(path: str) -> bool:
+    try:
+        return bool(np.isfinite(np.load(path)).all())
+    except (OSError, ValueError):
+        return False
 
 
 def gate_expected_outputs(out_dir: str, expected_dir: str, rows: List[GateRow]) -> None:

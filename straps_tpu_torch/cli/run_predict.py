@@ -90,5 +90,13 @@ def main(argv=None):
     return out
 
 
+def script() -> int:
+    """The `straps-predict-torch` console script: `main` over the process's arguments,
+    exit status 0 on success (`main` returns its predictions, which
+    `sys.exit` would print and turn into status 1)."""
+    main()
+    return 0
+
+
 if __name__ == "__main__":
     main()

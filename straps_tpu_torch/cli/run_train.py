@@ -88,5 +88,13 @@ def train_rank(cfg: TrainConfig, device: str, profile_dir=None) -> str:
     return run(cfg, device, profile_dir, lead=dist.get_rank() == 0)[0].digest()
 
 
+def script() -> int:
+    """The `straps-train-torch` console script: `main` over the process's arguments,
+    exit status 0 on success (`main` returns its training state, which
+    `sys.exit` would print and turn into status 1)."""
+    main()
+    return 0
+
+
 if __name__ == "__main__":
     main()

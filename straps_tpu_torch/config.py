@@ -2,9 +2,13 @@
 augmentation configs, YAML loading and the 'dotted.key=value' CLI overrides.
 
 A copy of `straps_tpu/config.py`, with the defaults of the reference's
-released training configuration.  Left out: the JAX package's
-`RenderConfig` (here the tensors' device picks the rasteriser) and
-`smpl_precision` (the port's SMPL is always full float32, TF32 off).
+released training configuration.  Two keys of the JAX package are
+accepted with its defaults and change nothing the port computes:
+`render` (`RenderConfig`: here the tensors' device picks the rasteriser,
+the CUDA kernel on the card and its plain version on the CPU) and
+`smpl_precision` (the port's SMPL is always full float32, TF32 off).  A
+value the JAX training step raises on is refused here too, naming the key
+(`check_jax_only_keys`).
 """
 
 import ast
@@ -62,6 +66,23 @@ class ProxyAugmentConfig:
 
 
 @dataclass
+class RenderConfig:
+    backend: str = "pallas"                         # 'pallas' | 'xla'
+    interpret: bool = False                         # Pallas interpret (CPU)
+
+
+# The values the JAX package's einsums take as `precision`: None, the
+# `lax.Precision` strings and the `lax.DotAlgorithmPreset` names.
+SMPL_PRECISIONS = (
+    None, "default", "fastest", "high", "highest", "bfloat16", "bfloat16_3x",
+    "tensorfloat32", "float32", "DEFAULT", "ANY_F8_ANY_F8_F32",
+    "ANY_F8_ANY_F8_F32_FAST_ACCUM", "ANY_F8_ANY_F8_ANY", "ANY_F8_ANY_F8_ANY_FAST_ACCUM",
+    "F16_F16_F16", "F16_F16_F32", "BF16_BF16_BF16", "BF16_BF16_F32", "BF16_BF16_F32_X3",
+    "BF16_BF16_F32_X6", "BF16_BF16_F32_X9", "TF32_TF32_F32", "TF32_TF32_F32_X3",
+    "F32_F32_F32", "F64_F64_F64")
+
+
+@dataclass
 class TrainConfig:
     batch_size: int = 140
     lr: float = 1e-4
@@ -88,6 +109,7 @@ class TrainConfig:
     seed: int = 0
     smpl_dir: Optional[str] = None                  # None -> synthetic assets
     model: ModelConfig = field(default_factory=ModelConfig)
+    render: RenderConfig = field(default_factory=RenderConfig)
     smpl_augment: SmplAugmentConfig = field(default_factory=SmplAugmentConfig)
     cam_augment: CamAugmentConfig = field(default_factory=CamAugmentConfig)
     bbox_augment: BboxAugmentConfig = field(default_factory=BboxAugmentConfig)
@@ -95,6 +117,8 @@ class TrainConfig:
     # Data-parallel ranks, one process each (0 = every visible card, 1 on
     # the CPU); the CLI launches them when there are more than one.
     data_parallel_devices: int = 0
+    # The JAX package's SMPL matmul precision; the port's SMPL is float32.
+    smpl_precision: Optional[str] = "highest"
     # 'clean' (centred Gaussian) | 'legacy' (the reference's linspace grid).
     heatmap_mode: str = "clean"
     # Grid side of the optional 'silhouette' task (the soft silhouette of
@@ -141,6 +165,17 @@ class PredictConfig:
     # record their mode, no checkpoint -> 'clean'.
     heatmap_mode: str = "auto"         # 'auto' | 'clean' | 'legacy'
     model: ModelConfig = field(default_factory=ModelConfig)
+
+
+def check_jax_only_keys(cfg: TrainConfig) -> None:
+    """Raise ValueError, naming the key, on a `render.backend` or an
+    `smpl_precision` that the JAX training step raises on."""
+    if cfg.render.backend not in ("pallas", "xla"):
+        raise ValueError(f"render.backend: unknown backend {cfg.render.backend!r} "
+                         f"(want 'pallas' or 'xla')")
+    if cfg.smpl_precision not in SMPL_PRECISIONS:
+        raise ValueError(f"smpl_precision: {cfg.smpl_precision!r} is no matmul precision "
+                         f"(want one of {SMPL_PRECISIONS})")
 
 
 def _apply_overrides(obj: Any, overrides: Dict[str, Any]) -> Any:

@@ -40,6 +40,15 @@ from straps_tpu_torch.smpl.model import (
 from straps_tpu_torch.utils.device import resolve_device
 from straps_tpu_torch.utils.image import cv2_resize_nearest
 
+def load_eval_npz(path: str) -> Dict[str, np.ndarray]:
+    """A canonical eval npz (`poses`, `shapes`, optional others) as a dict;
+    ValueError without both keys."""
+    data = dict(np.load(path, allow_pickle=True))
+    if "poses" not in data or "shapes" not in data:
+        raise ValueError(f"eval npz needs poses/shapes; got {list(data)}")
+    return data
+
+
 DEFAULT_METRICS = ("pves", "pves_sc", "pves_pa", "pve-ts", "pve-ts_sc",
                    "mpjpes", "mpjpes_sc", "mpjpes_pa", "silhouette_ious")
 

@@ -25,6 +25,10 @@ def compute_similarity_transform(S1: torch.Tensor, S2: torch.Tensor) -> torch.Te
     return scale[:, None, None] * torch.einsum("bij,bnj->bni", R, S1) + t
 
 
+# The JAX package's alias of the batched entry point.
+procrustes_align = compute_similarity_transform
+
+
 def scale_and_translation_transform(P: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """Match the mean and RMS scale of (B, N, 3) P to T."""
     P_mean = P.mean(dim=1, keepdim=True)

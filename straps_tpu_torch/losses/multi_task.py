@@ -20,6 +20,10 @@ import torch
 from straps_tpu_torch.geometry.joints import normalise_keypoints
 from straps_tpu_torch.parallel.mesh import all_reduce_
 
+ALL_TASKS = ("verts", "joints2D", "joints3D", "pose_params", "shape_params",
+             "silhouette")
+
+
 def init_loss_log_vars(losses_on, init_loss_weights: Optional[dict] = None,
                        eps: float = 1e-6, device="cpu") -> Dict[str, torch.Tensor]:
     """Initial log-variances, -log(w + eps), or 0 without init weights, as

@@ -2,8 +2,7 @@
 
 Everything the reference checkpoints: the regressor (parameters and
 BatchNorm statistics), the learned loss log-variances, one Adam over both
-together (torch defaults: betas 0.9/0.999, eps 1e-8 outside the square
-root, as `optax.adam`), and the step count.  Over a data mesh the state is
+together (`make_optimizer`), and the step count.  Over a data mesh the state is
 a replica: every rank holds the same values, rank 0's at creation.
 """
 
@@ -56,6 +55,12 @@ class TrainState:
         return h.hexdigest()
 
 
+def make_optimizer(params, lr: float) -> torch.optim.Adam:
+    """Adam with torch's defaults, as the JAX package's `optax.adam`
+    (betas 0.9/0.999, eps 1e-8 outside the square root), over `params`."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
 def create_train_state(model: SingleInputRegressor, log_vars: Dict[str, torch.Tensor],
                        lr: float, mesh: Optional[DataMesh] = None) -> TrainState:
     """A fresh state: the model and log-variances as given, Adam at step 0
@@ -65,6 +70,5 @@ def create_train_state(model: SingleInputRegressor, log_vars: Dict[str, torch.Te
     if mesh is not None:
         replicate(model, mesh)
         replicate(log_vars, mesh)
-    optimizer = torch.optim.Adam(list(model.parameters()) + list(log_vars.values()),
-                                 lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    optimizer = make_optimizer(list(model.parameters()) + list(log_vars.values()), lr)
     return TrainState(model=model, log_vars=log_vars, optimizer=optimizer, mesh=mesh)

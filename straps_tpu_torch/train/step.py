@@ -22,7 +22,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from straps_tpu_torch.config import TrainConfig
+from straps_tpu_torch.config import TrainConfig, check_jax_only_keys
 from straps_tpu_torch.geometry.camera import orthographic_project
 from straps_tpu_torch.geometry.rotations import rot6d_to_rotmat
 from straps_tpu_torch.losses.multi_task import multi_task_loss
@@ -134,7 +134,10 @@ def make_train_step(assets: SmplAssets, cfg: TrainConfig):
     """fn(state, draws, pose (B, 72), shape (B, 10)) -> (loss, task_losses,
     per_frame): the augmented synthetic batch of `draws`, then
     `train_on_batch`.  Over `state.mesh`, the draws, poses and shapes are
-    this rank's rows of the global batch."""
+    this rank's rows of the global batch.  Raises ValueError on a
+    `render.backend` or `smpl_precision` the JAX step raises on."""
+    check_jax_only_keys(cfg)
+
     def step(state: TrainState, draws, pose: torch.Tensor, shape: torch.Tensor) -> StepOutput:
         batch = generate_synthetic_batch(draws, pose, shape, assets, cfg, augment=True)
         return train_on_batch(state, batch, assets, cfg)
@@ -145,6 +148,8 @@ def make_val_step(assets: SmplAssets, cfg: TrainConfig):
     """fn(state, pose, shape) -> (loss, task_losses, per_frame): no
     augmentation, the mean camera and crop, BatchNorm in eval mode, no
     update; over `state.mesh` as `make_train_step`."""
+    check_jax_only_keys(cfg)
+
     @torch.no_grad()
     def step(state: TrainState, pose: torch.Tensor, shape: torch.Tensor) -> StepOutput:
         batch = generate_synthetic_batch(None, pose, shape, assets, cfg, augment=False)

@@ -15,7 +15,10 @@ expected vertices, a missing SMPL directory and a pickle short of one
 backbone tensor each give FAIL and exit code 1.  The detector rows'
 tensor counts equal the leaves of the JAX package's conversion of the same
 pickles (the JAX gate's own detector rows, which build each model at
-full width, are the JAX suite's `tests/test_parity_gate.py`).
+full width, are the JAX suite's `tests/test_parity_gate.py`).  Where the
+JAX gate raises (a forward that fails after a load) or counts a stale
+`*_verts.npy` of an earlier run as its own, the port's gate reports a
+FAIL row and exit 1, or counts only this run's files (ROADMAP §3).
 """
 
 import os
@@ -226,3 +229,61 @@ def _leaves(tree):
             yield from _leaves(v)
         else:
             yield v
+
+
+def test_a_failing_forward_or_round_trip_is_a_fail_row(stand_ins, monkeypatch, capsys):
+    """The JAX gate runs the regressor's forward, its flax round trip and
+    the comparison outside its guard: a checkpoint that loads there but
+    fails its forward (an R18 `.tar` under `--resnet-layers 50`) ends it
+    with a traceback (ROADMAP §3).  The port's loader refuses that
+    checkpoint itself; a forward or a round trip that fails after a load
+    is a FAIL row naming the error, and exit code 1."""
+    root, common = stand_ins
+    wrong_depth = ["--smpl-dir", common[1], "--checkpoint", common[3], "--resnet-layers", "50"]
+    with pytest.raises(Exception, match="shape"):
+        jax_gate(wrong_depth)
+    capsys.readouterr()
+    assert port_gate(wrong_depth + ["--device", "cpu"]) == 1
+    text = capsys.readouterr().out
+    assert _rows(text)["regressor_checkpoint"][0] == "FAIL" and "size mismatch" in text
+
+    from straps_tpu_torch.models import convert
+    from straps_tpu_torch.models.regressor import SingleInputRegressor
+
+    def fails(*args, **kwargs):
+        raise RuntimeError("forward failed on purpose")
+    gate = ["--smpl-dir", common[1], "--checkpoint", common[3], "--device", "cpu"]
+    with monkeypatch.context() as m:
+        m.setattr(SingleInputRegressor, "forward", fails)
+        assert port_gate(gate) == 1
+    text = capsys.readouterr().out
+    rows = _rows(text)
+    assert rows["regressor_checkpoint"] == ("FAIL", "RuntimeError: forward failed on purpose")
+    assert "regressor_roundtrip" not in rows and "PARITY GATE: FAIL" in text
+    with monkeypatch.context() as m:
+        m.setattr(convert, "torch_state_dict_to_flax", fails)
+        assert port_gate(gate) == 1
+    rows = _rows(capsys.readouterr().out)
+    assert rows["regressor_checkpoint"][0] == "PASS"
+    assert rows["regressor_roundtrip"] == ("FAIL", "RuntimeError: forward failed on purpose")
+
+
+def test_stale_outputs_are_not_counted(stand_ins, capsys):
+    """A `*_verts.npy` left in `--out-dir` by an earlier run: the JAX gate
+    counts it and reports a false FAIL (ROADMAP §3); the port's gate checks
+    each predicted image's own file, and its row equals the JAX gate's row
+    on a clean directory."""
+    root, common = stand_ins
+    jax_out, port_out, clean = (str(root / d) for d in ("jax_stale", "port_stale", "jax_clean"))
+    for d in (jax_out, port_out):
+        os.makedirs(d)
+        np.save(os.path.join(d, "earlier_run_verts.npy"), np.zeros((6890, 3), np.float32))
+    assert jax_gate(common + ["--out-dir", clean]) == 0
+    want = _rows(capsys.readouterr().out)["demo_predict"]
+    assert jax_gate(common + ["--out-dir", jax_out]) == 1
+    jax_stale = _rows(capsys.readouterr().out)["demo_predict"]
+    assert jax_stale == ("FAIL", "2 images -> 3 verts.npy, finite")
+    assert port_gate(common + ["--out-dir", port_out, "--device", "cpu"]) == 0
+    text = capsys.readouterr().out
+    assert _rows(text)["demo_predict"] == want == ("PASS", "2 images -> 2 verts.npy, finite")
+    assert "PARITY GATE: PASS" in text

@@ -240,13 +240,11 @@ def test_multi_task_loss_matches_jax():
 
 
 def test_train_config_matches_jax(tmp_path):
-    """Every field of the JAX package's TrainConfig but the two the port
-    leaves out has the same default; YAML then `key=value` overrides load
-    as the JAX package's `load_config` loads them."""
-    left_out = {"render", "smpl_precision"}
-    want = dataclasses.asdict(JaxTrainConfig())
-    assert dataclasses.asdict(TrainConfig()) == {k: v for k, v in want.items()
-                                                 if k not in left_out}
+    """Every field of the JAX package's TrainConfig has the same default in
+    the port (`render` and `smpl_precision` included, which the port
+    accepts and ignores); YAML then `key=value` overrides load as the JAX
+    package's `load_config` loads them."""
+    assert dataclasses.asdict(TrainConfig()) == dataclasses.asdict(JaxTrainConfig())
     path = tmp_path / "cfg.yaml"
     path.write_text("batch_size: 8\nmodel:\n  compute_dtype: null\n"
                     "proxy_augment:\n  occlude_box_dim: 12\n")
@@ -255,8 +253,7 @@ def test_train_config_matches_jax(tmp_path):
     want = jax_load_config(JaxTrainConfig, str(path), overrides)
     assert (got.batch_size, got.lr, got.model.compute_dtype, got.proxy_augment.occlude_box_dim,
             got.cam_augment.delta_z_range) == (8, 0.001, None, 12, (-1.0, 1.0))
-    assert dataclasses.asdict(got) == {k: v for k, v in dataclasses.asdict(want).items()
-                                       if k not in left_out}
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 def test_tracker_matches_jax(tmp_path):
