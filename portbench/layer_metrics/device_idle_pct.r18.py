@@ -1,0 +1,7 @@
+"""The device's idle share of a unit, from the traced stretch."""
+
+from portbench.readers import device_idle_pct
+
+
+def read(ctx):
+    return device_idle_pct(ctx)
