@@ -52,6 +52,7 @@ from straps_tpu_torch.utils.device import resolve_device
 from straps_tpu_torch.utils.image import cv2_resize_linear_u8
 from straps_tpu_torch.utils.jpeg import decode_jpeg_bytes
 from straps_tpu_torch.utils.png import SIGNATURE as PNG_SIGNATURE, decode_png_bytes, write_png
+from straps_tpu_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -427,46 +428,57 @@ def predict_3d(cfg: PredictConfig, save_vis: bool = True,
     if cfg.silhouettes_from not in ("cached",) + DETECTOR_FRONT_ENDS:
         raise ValueError(f"silhouettes_from must be 'cached', 'pointrend' or 'densepose', "
                          f"got {cfg.silhouettes_from!r}")
-    dev = resolve_device(device)
-    assets = load_assets(cfg.smpl_dir, device=dev)
-    model, heatmap_mode = load_regressor_variables(cfg, assets, device=dev)
-    if cfg.silhouettes_from == "cached":
-        names, proxies = load_cached_proxies(cfg.proxy_dir or cfg.input_dir, cfg.img_wh,
-                                             heatmap_mode=heatmap_mode, device=dev)
-        vis = None
-    else:
-        names, proxies, vis = detect_and_build_proxies(
-            cfg, build_vis=save_vis, heatmap_mode=heatmap_mode, device=dev,
-            size=cfg.detector_image_size, test_size=cfg.detector_test_size)
-    out = make_predict_fn(model, assets, cfg.img_wh,
-                          input_dtype=cfg.proxy_input_dtype)(proxies)
-    out_np = {k: v.cpu().numpy() for k, v in out.items()}
-
-    os.makedirs(cfg.out_dir, exist_ok=True)
-    for i, name in enumerate(names):
-        for key in ("verts", "shape", "pose_rotmats", "cam_wp"):
-            np.save(os.path.join(cfg.out_dir, f"{name}_{key}.npy"), out_np[key][i])
-
-    if save_vis:
-        with torch.inference_mode():
-            rend = render_body_vis_batch(out["verts"], out["cam_wp"], assets, img_wh=cfg.img_wh,
-                                         image=None if vis is None else vis["crops"])
-            reposed_cam = torch.tensor(REPOSED_CAM_WP, device=dev).expand(len(names), 3)
-            reposed = render_body_vis_batch(out["reposed_verts"], reposed_cam, assets,
-                                            img_wh=cfg.img_wh, rotate_x180=True)
-            if vis is None:
-                proxy_imgs = {"": proxy_vis_batch(proxies)}
+    with span("straps.predict"):
+        with span("straps.predict.load"):
+            dev = resolve_device(device)
+            assets = load_assets(cfg.smpl_dir, device=dev)
+            model, heatmap_mode = load_regressor_variables(cfg, assets, device=dev)
+        with span("straps.predict.proxies"):
+            if cfg.silhouettes_from == "cached":
+                names, proxies = load_cached_proxies(cfg.proxy_dir or cfg.input_dir, cfg.img_wh,
+                                                     heatmap_mode=heatmap_mode, device=dev)
+                vis = None
             else:
-                proxy_imgs = {"silhouette_": vis["silhouette_vis"],
-                              "joints2D_": vis["joints_vis"]}
-        rend, reposed = rend.cpu().numpy(), reposed.cpu().numpy()
-        proxy_imgs = {k: v.cpu().numpy() for k, v in proxy_imgs.items()}
-        write_verts_vis(cfg.out_dir, names, out["verts"], out["cam_wp"],
-                        None if vis is None else vis["crops"])
-        for i, name in enumerate(names):
-            write_png(os.path.join(cfg.out_dir, "rend_vis", f"rend_{name}.png"), rend[i])
-            write_png(os.path.join(cfg.out_dir, "rend_vis", f"reposed_{name}.png"), reposed[i])
-            for prefix, imgs in proxy_imgs.items():
-                write_png(os.path.join(cfg.out_dir, "proxy_vis", f"{prefix}{name}.png"), imgs[i])
+                names, proxies, vis = detect_and_build_proxies(
+                    cfg, build_vis=save_vis, heatmap_mode=heatmap_mode, device=dev,
+                    size=cfg.detector_image_size, test_size=cfg.detector_test_size)
+        with span("straps.predict.regress"):
+            out = make_predict_fn(model, assets, cfg.img_wh,
+                                  input_dtype=cfg.proxy_input_dtype)(proxies)
+            out_np = {k: v.cpu().numpy() for k, v in out.items()}
+
+        with span("straps.predict.write_npy"):
+            os.makedirs(cfg.out_dir, exist_ok=True)
+            for i, name in enumerate(names):
+                for key in ("verts", "shape", "pose_rotmats", "cam_wp"):
+                    np.save(os.path.join(cfg.out_dir, f"{name}_{key}.npy"), out_np[key][i])
+
+        if save_vis:
+            with span("straps.predict.render"), torch.inference_mode():
+                rend = render_body_vis_batch(out["verts"], out["cam_wp"], assets,
+                                             img_wh=cfg.img_wh,
+                                             image=None if vis is None else vis["crops"])
+                reposed_cam = torch.tensor(REPOSED_CAM_WP, device=dev).expand(len(names), 3)
+                reposed = render_body_vis_batch(out["reposed_verts"], reposed_cam, assets,
+                                                img_wh=cfg.img_wh, rotate_x180=True)
+                if vis is None:
+                    proxy_imgs = {"": proxy_vis_batch(proxies)}
+                else:
+                    proxy_imgs = {"silhouette_": vis["silhouette_vis"],
+                                  "joints2D_": vis["joints_vis"]}
+                rend, reposed = rend.cpu().numpy(), reposed.cpu().numpy()
+                proxy_imgs = {k: v.cpu().numpy() for k, v in proxy_imgs.items()}
+            with span("straps.predict.figures"):
+                write_verts_vis(cfg.out_dir, names, out["verts"], out["cam_wp"],
+                                None if vis is None else vis["crops"])
+            with span("straps.predict.write_png"):
+                for i, name in enumerate(names):
+                    write_png(os.path.join(cfg.out_dir, "rend_vis", f"rend_{name}.png"),
+                              rend[i])
+                    write_png(os.path.join(cfg.out_dir, "rend_vis", f"reposed_{name}.png"),
+                              reposed[i])
+                    for prefix, imgs in proxy_imgs.items():
+                        write_png(os.path.join(cfg.out_dir, "proxy_vis", f"{prefix}{name}.png"),
+                                  imgs[i])
     out_np["names"] = names
     return out_np

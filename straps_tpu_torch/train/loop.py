@@ -40,7 +40,7 @@ from straps_tpu_torch.utils.checkpoints import (
 )
 from straps_tpu_torch.utils.device import resolve_device
 from straps_tpu_torch.utils.model_utils import count_parameters
-from straps_tpu_torch.utils.profiling import StepTimer
+from straps_tpu_torch.utils.profiling import StepTimer, span
 
 
 def build_training(cfg: TrainConfig, assets=None, device="cuda"):
@@ -84,9 +84,10 @@ def pull_to_host(loss, task_losses, per_frame):
     """One device->host copy of a step's loss, task losses and per-frame
     metrics -> (float, {task: float}, {metric: numpy (B,)})."""
     tasks, metrics = list(task_losses), list(per_frame)
-    flat = torch.cat([loss.reshape(1).float()]
-                     + [task_losses[k].reshape(1).float() for k in tasks]
-                     + [per_frame[k].reshape(-1).float() for k in metrics]).cpu().numpy()
+    with span("straps.train.pull"):
+        flat = torch.cat([loss.reshape(1).float()]
+                         + [task_losses[k].reshape(1).float() for k in tasks]
+                         + [per_frame[k].reshape(-1).float() for k in metrics]).cpu().numpy()
     B = per_frame[metrics[0]].shape[0] if metrics else 0
     n = 1 + len(tasks)
     return (float(flat[0]), {k: float(flat[1 + i]) for i, k in enumerate(tasks)},
@@ -198,14 +199,17 @@ def train(cfg: TrainConfig, assets=None, max_steps_per_epoch: Optional[int] = No
 
         if epoch % cfg.epochs_per_save == 0 or epoch == cfg.num_epochs - 1:
             # Also at the final epoch, so that best weights found after the
-            # last boundary are on disk.
-            if lead:
-                save_checkpoint(checkpoint_path(cfg.model_save_path, epoch), state,
-                                epoch=epoch, best_epoch=best_epoch, best_params=best_params,
-                                best_epoch_val_metrics=best_epoch_val_metrics,
-                                heatmap_mode=cfg.heatmap_mode)
-            if mesh is not None:
-                barrier(mesh)
+            # last boundary are on disk.  The span holds the save stall: the
+            # write, and every rank's wait for it.
+            with span("straps.train.checkpoint"):
+                if lead:
+                    save_checkpoint(checkpoint_path(cfg.model_save_path, epoch), state,
+                                    epoch=epoch, best_epoch=best_epoch,
+                                    best_params=best_params,
+                                    best_epoch_val_metrics=best_epoch_val_metrics,
+                                    heatmap_mode=cfg.heatmap_mode)
+                if mesh is not None:
+                    barrier(mesh)
 
     tracker.best_epoch = best_epoch
     tracker.best_epoch_val_metrics = {k: float(v) for k, v in best_epoch_val_metrics.items()}

@@ -34,6 +34,7 @@ from straps_tpu_torch.smpl.assets import SmplAssets
 from straps_tpu_torch.smpl.model import select_joint_sets, smpl_forward
 from straps_tpu_torch.train.state import TrainState
 from straps_tpu_torch.train.synthetic import SyntheticBatch, generate_synthetic_batch
+from straps_tpu_torch.utils.profiling import span
 
 StepOutput = Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
 
@@ -113,20 +114,24 @@ def train_on_batch(state: TrainState, batch: SyntheticBatch, assets: SmplAssets,
     device.  Over `state.mesh`, `batch` holds this rank's rows, the
     gradients are the global loss's, and the outputs are global."""
     mesh = state.mesh
-    state.optimizer.zero_grad(set_to_none=True)
-    with use_data_mesh(state.model, mesh):
-        loss, task_losses, pred_dict, target_dict, pred_reposed = _forward_and_dicts(
-            state, batch, assets, cfg, train=True)
-    loss.backward()
-    if mesh is not None:
-        trainables = list(state.model.parameters()) + list(state.log_vars.values())
-        loss, task_losses = _global_losses(loss, task_losses, mesh,
-                                           grads=[p.grad for p in trainables])
-    state.optimizer.step()
-    state.step += 1
-    per_frame = _metrics(cfg, pred_dict, target_dict, pred_reposed, batch)
-    if mesh is not None:
-        per_frame = gather_batch(per_frame, mesh)
+    with span("straps.train.update"):
+        state.optimizer.zero_grad(set_to_none=True)
+        with span("straps.update.forward"), use_data_mesh(state.model, mesh):
+            loss, task_losses, pred_dict, target_dict, pred_reposed = _forward_and_dicts(
+                state, batch, assets, cfg, train=True)
+        with span("straps.update.backward"):
+            loss.backward()
+            if mesh is not None:
+                trainables = list(state.model.parameters()) + list(state.log_vars.values())
+                loss, task_losses = _global_losses(loss, task_losses, mesh,
+                                                   grads=[p.grad for p in trainables])
+        with span("straps.update.adam"):
+            state.optimizer.step()
+            state.step += 1
+        with span("straps.update.metrics"):
+            per_frame = _metrics(cfg, pred_dict, target_dict, pred_reposed, batch)
+            if mesh is not None:
+                per_frame = gather_batch(per_frame, mesh)
     return loss.detach(), {k: v.detach() for k, v in task_losses.items()}, per_frame
 
 

@@ -31,6 +31,7 @@ from straps_tpu_torch.parallel.mesh import batch_rows
 from straps_tpu_torch.render.renderer import render_part_seg
 from straps_tpu_torch.smpl.assets import SmplAssets
 from straps_tpu_torch.smpl.model import select_joint_sets, smpl_forward
+from straps_tpu_torch.utils.profiling import span
 
 
 class SyntheticBatch(NamedTuple):
@@ -62,12 +63,13 @@ def draw_synthetic(generator: torch.Generator, batch_size: int, num_verts: int,
     """The draws of one augmented step from `generator` (which must live on
     `device`)."""
     B = batch_size
-    betas = draw_delta_betas(generator, B, 10, cfg.smpl_augment, device)
-    cam_xy, cam_z = draw_cam_jitter(generator, B, cfg.cam_augment, device)
-    scale = uniform(generator, (B,), *cfg.bbox_augment.delta_scale_range, device)
-    centre = uniform(generator, (B, 2), *cfg.bbox_augment.delta_centre_range, device)
-    proxy = draw_proxy_augment(generator, B, num_verts, cfg.img_wh, cfg.img_wh,
-                               cfg.proxy_augment, device)
+    with span("straps.train.draws"):
+        betas = draw_delta_betas(generator, B, 10, cfg.smpl_augment, device)
+        cam_xy, cam_z = draw_cam_jitter(generator, B, cfg.cam_augment, device)
+        scale = uniform(generator, (B,), *cfg.bbox_augment.delta_scale_range, device)
+        centre = uniform(generator, (B, 2), *cfg.bbox_augment.delta_centre_range, device)
+        proxy = draw_proxy_augment(generator, B, num_verts, cfg.img_wh, cfg.img_wh,
+                                   cfg.proxy_augment, device)
     return SyntheticDraws(betas, cam_xy, cam_z, scale, centre, proxy)
 
 
@@ -100,64 +102,69 @@ def generate_synthetic_batch(draws: Optional[SyntheticDraws], pose: torch.Tensor
       pose: (B, 72) axis-angle SMPL pose, root first; shape: (B, 10) betas;
         both on `assets`' device.
     """
-    B = pose.shape[0]
-    dev = pose.device
-    img_wh = cfg.img_wh
-    mean_cam_t = torch.tensor(cfg.mean_cam_t, dtype=torch.float32, device=dev).expand(B, 3)
-    cam_K = torch.as_tensor(get_intrinsics_matrix(img_wh, img_wh, cfg.focal_length),
-                            device=dev)
-    mean_shape = torch.tensor(assets.mean_shape, dtype=torch.float32, device=dev)
-    tgt_shape, tgt_pose_rm, tgt_glob_rm = augment_smpl(
-        draws.delta_betas if augment else None, shape, pose[:, 3:], pose[:, :3],
-        mean_shape, cfg.smpl_augment,
-        augment_shape=cfg.smpl_augment.augment_shape and augment)
-    if augment:
-        cam_t = augment_cam_t(mean_cam_t, draws.cam_xy, draws.cam_z,
-                              xy_std=cfg.cam_augment.xy_std)
-    else:
-        cam_t = mean_cam_t
+    with span("straps.train.synth"):
+        with span("straps.synth.body"):
+            B = pose.shape[0]
+            dev = pose.device
+            img_wh = cfg.img_wh
+            mean_cam_t = torch.tensor(cfg.mean_cam_t, dtype=torch.float32,
+                                      device=dev).expand(B, 3)
+            cam_K = torch.as_tensor(get_intrinsics_matrix(img_wh, img_wh, cfg.focal_length),
+                                    device=dev)
+            mean_shape = torch.tensor(assets.mean_shape, dtype=torch.float32, device=dev)
+            tgt_shape, tgt_pose_rm, tgt_glob_rm = augment_smpl(
+                draws.delta_betas if augment else None, shape, pose[:, 3:], pose[:, :3],
+                mean_shape, cfg.smpl_augment,
+                augment_shape=cfg.smpl_augment.augment_shape and augment)
+            if augment:
+                cam_t = augment_cam_t(mean_cam_t, draws.cam_xy, draws.cam_z,
+                                      xy_std=cfg.cam_augment.xy_std)
+            else:
+                cam_t = mean_cam_t
 
-    out = smpl_forward(assets, tgt_shape, tgt_pose_rm, tgt_glob_rm)
-    joints_h36mlsp, joints_coco = select_joint_sets(out.joints)
-    eye = torch.eye(3, dtype=torch.float32, device=dev)
-    joints2d = perspective_project(joints_coco, eye, cam_t, cam_K)
-    reposed = smpl_forward(assets, tgt_shape)
+            out = smpl_forward(assets, tgt_shape, tgt_pose_rm, tgt_glob_rm)
+            joints_h36mlsp, joints_coco = select_joint_sets(out.joints)
+            eye = torch.eye(3, dtype=torch.float32, device=dev)
+            joints2d = perspective_project(joints_coco, eye, cam_t, cam_K)
+            reposed = smpl_forward(assets, tgt_shape)
+            pose_rotmats = torch.cat([tgt_glob_rm, tgt_pose_rm], dim=1)
 
-    verts_render = out.vertices
-    if augment and cfg.proxy_augment.deviate_verts2D:
-        verts_render = random_verts2d_deviation(out.vertices, draws.proxy.verts_noise)
+            verts_render = out.vertices
+            if augment and cfg.proxy_augment.deviate_verts2D:
+                verts_render = random_verts2d_deviation(out.vertices, draws.proxy.verts_noise)
 
-    # Back faces culled: the part map is the same on the watertight mesh,
-    # and the kernel skips chunks of back faces.
-    parts, _ = render_part_seg(verts_render, cam_t, cam_K, assets.faces,
-                               assets.face_parts, img_wh, cull_backfaces=True)
-    parts = parts.to(torch.float32)
+        with span("straps.synth.render"):
+            # Back faces culled: the part map is the same on the watertight
+            # mesh, and the kernel skips chunks of back faces.
+            parts, _ = render_part_seg(verts_render, cam_t, cam_K, assets.faces,
+                                       assets.face_parts, img_wh, cull_backfaces=True)
+            parts = parts.to(torch.float32)
 
-    if cfg.bbox_augment.crop_input:
-        if augment:
-            sf = cfg.bbox_augment.mean_scale_factor + draws.crop_scale
-            co = draws.crop_centre
-        else:
-            sf = torch.full((B,), cfg.bbox_augment.mean_scale_factor,
-                            dtype=torch.float32, device=dev)
-            co = torch.zeros((B, 2), dtype=torch.float32, device=dev)
-        parts, joints2d = batch_crop_and_resize(parts, joints2d, img_wh, sf, co)
+        with span("straps.synth.proxy"):
+            if cfg.bbox_augment.crop_input:
+                if augment:
+                    sf = cfg.bbox_augment.mean_scale_factor + draws.crop_scale
+                    co = draws.crop_centre
+                else:
+                    sf = torch.full((B,), cfg.bbox_augment.mean_scale_factor,
+                                    dtype=torch.float32, device=dev)
+                    co = torch.zeros((B, 2), dtype=torch.float32, device=dev)
+                parts, joints2d = batch_crop_and_resize(parts, joints2d, img_wh, sf, co)
 
-    joints2d_input = joints2d
-    if augment:
-        parts, joints2d_input = augment_proxy_representation(
-            parts, joints2d, draws.proxy, cfg.proxy_augment)
+            joints2d_input = joints2d
+            if augment:
+                parts, joints2d_input = augment_proxy_representation(
+                    parts, joints2d, draws.proxy, cfg.proxy_augment)
 
-    proxy = build_proxy(parts, joints2d_input, img_wh, heatmap_mode=cfg.heatmap_mode)
-    vis = check_joints2d_visibility(joints2d, img_wh)
-    pose_rotmats = torch.cat([tgt_glob_rm, tgt_pose_rm], dim=1)
-    return SyntheticBatch(
-        proxy=proxy,
-        target_verts=out.vertices,
-        target_reposed_verts=reposed.vertices,
-        target_joints_h36mlsp=joints_h36mlsp,
-        target_joints2d_coco=joints2d,
-        target_vis=vis,
-        target_pose_rotmats=pose_rotmats,
-        target_shape=tgt_shape,
-    )
+            proxy = build_proxy(parts, joints2d_input, img_wh, heatmap_mode=cfg.heatmap_mode)
+            vis = check_joints2d_visibility(joints2d, img_wh)
+        return SyntheticBatch(
+            proxy=proxy,
+            target_verts=out.vertices,
+            target_reposed_verts=reposed.vertices,
+            target_joints_h36mlsp=joints_h36mlsp,
+            target_joints2d_coco=joints2d,
+            target_vis=vis,
+            target_pose_rotmats=pose_rotmats,
+            target_shape=tgt_shape,
+        )

@@ -1,6 +1,7 @@
-"""Per-step wall-time accounting of the training loop and an on-demand
-profiler trace (counterpart of `straps_tpu/utils/profiling.py`; its
-compile cache is JAX tooling and is not ported)."""
+"""Per-step wall-time accounting of the training loop, spans on the
+profiler's clock and an on-demand profiler trace (counterpart of
+`straps_tpu/utils/profiling.py`; its compile cache is JAX tooling and is
+not ported)."""
 
 import contextlib
 import os
@@ -12,6 +13,25 @@ import torch
 
 TRACE_FILE = "trace.json"
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of host time on the profiler's clock.
+
+    While a `torch.profiler` profile records, this is
+    `torch.profiler.record_function(name)`: the range lands in the Chrome
+    trace as a `user_annotation` event, on the same timeline as the card's
+    kernels and copies.  Otherwise it is one shared no-op context manager,
+    so a span costs only the check whether a profile records.  A span's
+    parent is the span that encloses it on the same thread: the port runs
+    its units (steps, calls) one after another, so no request id is needed.
+    Spans are named `straps.<layer>[.<part>]` and are opened around whole
+    stages, never inside a per-image, per-face or per-row loop."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
 
 class StepTimer:
     def __init__(self):
@@ -20,10 +40,12 @@ class StepTimer:
 
     @contextlib.contextmanager
     def measure(self, name: str):
-        t0 = time.perf_counter()
-        yield
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
+        """Time the block on the host clock, in the span `straps.train.<name>`."""
+        with span(f"straps.train.{name}"):
+            t0 = time.perf_counter()
+            yield
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
 
     def mean_ms(self, name: str) -> float:
         c = self.counts.get(name, 0)
