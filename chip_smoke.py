@@ -6,7 +6,8 @@
 Phases, each of which raises on failure:
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles both rasteriser kernels from `straps_tpu_torch/csrc`
-     (each `.cu` with the shared `raster_span.cuh`), one nvcc each, and
+     (each `.cu` with the shared `raster_span.cuh`) and the training-mode
+     BatchNorm kernels (`batchnorm.cu`), one nvcc each, and
      the host C++ there (the JPEG decoder, the PNG unfilter, the npy
      reader, the zstd decoder) with g++, all started together;
   3. kernels vs plain: each kernel against its plain PyTorch version on the
@@ -15,7 +16,12 @@ Phases, each of which raises on failure:
      ragged 250x250 and a 512x512 of two 256-column tiles; the scenes of
      `tests/raster_scenes.py` (wide triangles across tile edges, ragged
      widths, near-horizontal edges, vertices on pixel centres, special
-     planes, a coplanar depth tie across two chunks);
+     planes, a coplanar depth tie across two chunks); then the BatchNorm
+     kernels at ResNet-50's 53 training shapes at B=140, 256x256, bfloat16
+     (`batchnorm_kernel_entry`): y and dx bit for bit against their plain
+     version given the kernels' statistics, the Function against the plain
+     formula under autograd within one bfloat16 ulp, and their ms a step
+     (the `kernels` line's third entry);
   4. slices, each with every kernel's launch count set to 0 just before it
      and read just after:
      - the evaluation CLI on 64 synthetic samples at full width (256x256
@@ -195,8 +201,9 @@ Phases, each of which raises on failure:
        the repository, and a fresh process whose only copy of the port is
        that one (its working directory outside the repository too):
        every subpackage imported and every name of every `__all__` and
-       `JAX_COUNTERPARTS` resolved; both kernels and the host C++ built
-       from the copy's own `csrc/` into the copy's `_build/` (each build
+       `JAX_COUNTERPARTS` resolved; both rasterisers, the BatchNorm
+       kernels and the host C++ built from the copy's own `csrc/` into
+       the copy's `_build/` (each build
        timed); the evaluation CLI over the evaluation slice's 64 samples
        and the predict CLI over the predict slice's 64 cached proxies at
        full width, metrics and npy outputs equal to those slices', exactly
@@ -246,6 +253,7 @@ Exits non-zero without a card, and outside a checkout of the repository.
 """
 
 import contextlib
+import copy
 import hashlib
 import io
 import json
@@ -289,6 +297,129 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def batchnorm_kernel_entry(card, batch=140, depth=50):
+    """The training-mode BatchNorm kernels (`csrc/batchnorm.cu`) at the
+    shapes of ResNet-50's 53 layers at 18 x 256², B=140, bfloat16
+    channels-last: each kernel held to its plain version (y and dx bit for
+    bit given the kernels' statistics), the Function under autograd and the
+    plain training formula to the same formula in float64 (one bfloat16
+    ulp, plus what the statistics' summation order may move:
+    `tests/torch_bn.py::within_bound`; the kernels must pass, the plain
+    formula's reading is printed beside), then ms a training step: each
+    kernel and all four (CUDA events, summed over the layers), the plain
+    formula's forward and backward, PyTorch's `batch_norm` in training mode
+    forward and backward (`library_ms`: timed only, since its variance
+    arithmetic is not flax's), and the least time (10 bytes an element: x
+    read and y written, dy and x read and dx written, over 3.35 TB/s).
+    Returns the `kernels` line's entry; raises on a mismatch."""
+    from straps_tpu_torch.models import resnet as RN
+    from torch_bn import bn_input_shapes, channel_bounds, float64_truth, within_bound
+
+    K = RN.batchnorm_kernels
+    shapes = bn_input_shapes(depth, batch)
+    dev = torch.device("cuda")
+    cl = torch.channels_last
+    ms = {"stats": 0.0, "normalize": 0.0, "backward_sums": 0.0, "backward_dx": 0.0}
+    plain_ms, library_ms, worst, worst_plain, worst_abs, elements = 0.0, 0.0, 0.0, 0.0, 0.0, 0
+    for shape in sorted(set(shapes)):
+        layers = shapes.count(shape)
+        n, c, h, w = shape
+        elements += layers * n * c * h * w
+        g = torch.Generator().manual_seed(c + h)
+        x = (torch.randn(shape, generator=g) * 2 + 0.5)
+        x[:, c // 2] = 0.7
+        x = x.to(dev, torch.bfloat16, memory_format=cl)
+        dy = torch.randn(shape, generator=g).to(dev, torch.bfloat16, memory_format=cl)
+        norm = RN.BatchNorm2d(c).to(dev).train()
+        with torch.no_grad():
+            norm.weight.copy_(torch.rand(c, generator=g) + 0.5)
+            norm.bias.copy_(torch.randn(c, generator=g))
+        rm, rv = norm.running_mean.clone(), norm.running_var.clone()
+        tracked = norm.num_batches_tracked.clone()
+        count = x.numel() // c
+        sums = K.stats(x)
+        y, st = K.normalize(x, sums, norm.weight, norm.bias, rm, rv, tracked, count, 1e-5, 0.1)
+        bsums, _, _ = K.backward_sums(dy, x, st)
+        dx = K.backward_dx(dy, x, st, bsums, count)
+        if not (torch.equal(y, RN.batchnorm_normalize_reference(x, st, norm.bias))
+                and torch.equal(dx, RN.batchnorm_backward_dx_reference(dy, x, st, bsums,
+                                                                        count))):
+            raise AssertionError(f"BatchNorm kernels differ from their plain version at {shape}")
+        runs = []
+        for plain in (False, True):
+            m = copy.deepcopy(norm)
+            xr = x.clone().requires_grad_(True)
+            yr = m.plain_train_forward(xr) if plain else m(xr)
+            yr.backward(dy)
+            runs.append((yr.detach().float(), xr.grad.float()))
+        rel_c, abs_c = channel_bounds(x, norm.weight)
+        truth = float64_truth(x, norm.weight, norm.bias, dy)
+        for (a, b, t), factor in zip(zip(*runs, truth), (1.0, 3.0)):
+            worst = max(worst, within_bound(a, t, torch.bfloat16, rel_c, abs_c, factor))
+            worst_plain = max(worst_plain,
+                              within_bound(b, t, torch.bfloat16, rel_c, abs_c, factor))
+            worst_abs = max(worst_abs, float((a - b).abs().max()))
+        del truth
+        ms["stats"] += layers * cuda_ms(lambda: K.stats(x), 20)
+        ms["normalize"] += layers * cuda_ms(lambda: K.normalize(
+            x, sums, norm.weight, norm.bias, rm, rv, tracked, count, 1e-5, 0.1), 20)
+        ms["backward_sums"] += layers * cuda_ms(lambda: K.backward_sums(dy, x, st), 20)
+        ms["backward_dx"] += layers * cuda_ms(lambda: K.backward_dx(dy, x, st, bsums, count), 20)
+
+        def plain_step():
+            xr = x.clone().requires_grad_(True)
+            norm.plain_train_forward(xr).backward(dy)
+        plain_ms += layers * cuda_ms(plain_step, 5)
+
+        def library_step():
+            xr = x.clone().requires_grad_(True)
+            torch.nn.functional.batch_norm(xr, None, None, norm.weight, norm.bias,
+                                           training=True, eps=1e-5).backward(dy)
+        library_ms += layers * cuda_ms(library_step, 5)
+        del x, dy, y, dx, xr, yr, runs
+    if worst > 1.0:
+        raise AssertionError(f"BatchNorm Function vs the float64 formula: {worst:.3f} of the "
+                             f"bound (the plain float32 formula: {worst_plain:.3f})")
+    total = sum(ms.values())
+    bound_ms = 10 * elements / H100_HBM_BYTES_S * 1e3
+    print(f"times on {card}: BatchNorm kernels over ResNet-50's {len(shapes)} layers at B={batch}, "
+          f"256x256, bfloat16 channels-last ({elements} elements): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+          + f"; all four {total:.4f} ms a step against a least {bound_ms:.4f} ms by bytes "
+          f"({100 * bound_ms / total:.1f}% of it); plain formula forward + backward "
+          f"{plain_ms:.3f} ms; PyTorch's own batch_norm (training, not on the path) forward + "
+          f"backward {library_ms:.3f} ms; y and dx against the float64 formula: {worst:.3f} of the bound "
+          f"(the plain float32 formula {worst_plain:.3f}); largest gap to the plain formula "
+          f"{worst_abs:.4g}")
+    return {"name": "batchnorm", "route": "cuda", "source": "straps_tpu_torch/csrc/batchnorm.cu",
+            "replaces": None,
+            "inputs": f"ResNet-50's {len(shapes)} BatchNorm layers at B={batch}, 18 x 256x256, "
+                      f"bfloat16 channels-last: ms, plain_ms, library_ms and bound_ms a training "
+                      f"step (the four kernels; the plain formula's forward and backward; "
+                      f"torch.nn.functional.batch_norm's forward and backward; 10 bytes an "
+                      f"element over 3.35 TB/s); kernel_ms each kernel; r18_train_launches and "
+                      f"r50_train_launches: the train CLI's epochs of phases 4c and 4g (4 "
+                      f"launches a layer a train step; validation runs eval mode); launches: "
+                      f"their sum",
+            "launches": None, "max_abs_err": worst_abs, "err_of_bound": worst,
+            "plain_err_of_bound": worst_plain, "ms": total,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+            "kernel_ms": ms, "elements": elements}
+
+
+def check_batchnorm_launches(label, launches, depth, train_steps):
+    """Raise unless `launches` is the BatchNorm kernels' four launches a
+    layer of the ResNet encoder at `depth` in each of `train_steps` train
+    steps: the training path runs them on every layer."""
+    from torch_bn import bn_input_shapes
+    layers = len(bn_input_shapes(depth, 1))
+    want = 4 * layers * train_steps
+    if launches != want:
+        raise AssertionError(f"{label}: {launches} BatchNorm kernel launches, want 4 x "
+                             f"{layers} layers x {train_steps} train steps = {want}")
 
 
 def smpl_kernel_inputs(assets, img_wh, B, seed, cull=True):
@@ -764,9 +895,11 @@ def ddp_step_times(corpus):
 
 
 def reset_launches():
+    from straps_tpu_torch.models import resnet as RN
     from straps_tpu_torch.render import cuda_raster as CR
     for k in CR.KERNELS:
         k.launches = 0
+    RN.batchnorm_kernels.launches = 0
 
 
 def write_eval_npz(path, n, seed):
@@ -2448,6 +2581,7 @@ def installed_copy_child(site, spec_json):
                     getattr(module, name)
         names += len(module.JAX_COUNTERPARTS)
     from straps_tpu_torch.cli import run_eval, run_predict
+    from straps_tpu_torch.models import resnet as RN
     from straps_tpu_torch.render import cuda_raster as CR
     from straps_tpu_torch.utils import native_build
 
@@ -2456,18 +2590,21 @@ def installed_copy_child(site, spec_json):
         path = build(arg)
         return getattr(path, "_name", path), time.perf_counter() - t
 
-    with ThreadPoolExecutor(len(CR.KERNELS) + len(HOST_SOURCES)) as pool:
-        jobs = ([pool.submit(timed, CR.build_library, k.source) for k in CR.KERNELS]
+    sources = [k.source for k in CR.KERNELS] + [RN.batchnorm_kernels.source]
+    with ThreadPoolExecutor(len(sources) + len(HOST_SOURCES)) as pool:
+        jobs = ([pool.submit(timed, native_build.cuda_library, src) for src in sources]
                 + [pool.submit(timed, native_build.host_library, h) for h in HOST_SOURCES])
         builds = [job.result() for job in jobs]
     build_dir = os.path.join(pkg, "_build")
     for path, _ in builds:
         if os.path.dirname(path) != build_dir:
             raise AssertionError(f"{path} was not built into the copy's {build_dir}")
+    for src in sources:
+        if not src.startswith(pkg):
+            raise AssertionError(f"a kernel builds from {src}, outside the copy")
     for kernel in CR.KERNELS:
-        if not kernel.source.startswith(pkg):
-            raise AssertionError(f"{kernel.name} builds from {kernel.source}, outside the copy")
         kernel.function()
+    RN.batchnorm_kernels.library()
 
     recorded = []
     for kernel in CR.KERNELS:
@@ -2576,7 +2713,7 @@ def installed_copy(card, spec, want_metrics, want_out_dir):
             or len(got["checks"]) != 6 or len(identical) != 6):
         raise AssertionError(f"the installed copy's launches: eval {got['eval_launches']}, "
                              f"predict {got['predict_launches']}, checks {got['checks']}")
-    if len(csrc) != 8 or any("_build" in f.split("/") for f in files):
+    if len(csrc) != 9 or any("_build" in f.split("/") for f in files):
         raise AssertionError(f"the installed copy's csrc/: {csrc}")
     return lines, kernels
 
@@ -2638,12 +2775,15 @@ def main() -> int:
     # together.
     from straps_tpu_torch.utils import native_build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(CR.KERNELS) + len(HOST_SOURCES)) as pool:
+    from straps_tpu_torch.models import resnet as RN
+    with ThreadPoolExecutor(len(CR.KERNELS) + 1 + len(HOST_SOURCES)) as pool:
         host = [pool.submit(native_build.host_library, name) for name in HOST_SOURCES]
-        libs = list(pool.map(lambda k: CR.build_library(k.source), CR.KERNELS))
+        libs = list(pool.map(native_build.cuda_library,
+                             [k.source for k in CR.KERNELS] + [RN.batchnorm_kernels.source]))
         host_libs = [h.result()._name for h in host]
     for kernel in CR.KERNELS:
         kernel.function()
+    RN.batchnorm_kernels.library()
     print(f"build: {', '.join(libs + host_libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         with open(lib + ".log") as f:
@@ -2675,6 +2815,8 @@ def main() -> int:
                                             for t in scene())
         errs.append(compare_kernel(name, flat, bounds, attr, img_h, img_w))
         faceid_errs.append(compare_faceid(name, flat, bounds, img_h, img_w))
+    # The BatchNorm kernels at ResNet-50's training shapes.
+    batchnorm_entry = batchnorm_kernel_entry(card)
 
     # 4a. The evaluation slice: the evaluation CLI at full width.
     n, batch = 64, 32
@@ -2816,16 +2958,19 @@ def main() -> int:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_launches = CR.packed_raster_kernel.launches
+    train_bn_launches = RN.batchnorm_kernels.launches
     train_steps, val_steps = 4, 2         # 560 and 280 corpus samples at batch 140
     print("\n".join(line for line in cli_out.getvalue().splitlines()
                     if line.startswith(("epoch ", "Training completed"))))
     print(f"slice: train CLI, 1 epoch at batch {B}, {train_cfg.img_wh}x{train_cfg.img_wh}, "
           f"bf16 encoder ({train_steps} train + {val_steps} val steps, first steps "
           f"included): {train_s:.3f} s wall, packed kernel launches {train_launches}, "
-          f"face-id kernel launches {CR.faceid_raster_kernel.launches}")
+          f"face-id kernel launches {CR.faceid_raster_kernel.launches}, BatchNorm kernel "
+          f"launches {train_bn_launches}")
     if train_launches != train_steps + val_steps:
         raise AssertionError(f"training renders: {train_launches} packed launches, want "
                              f"{train_steps + val_steps}")
+    check_batchnorm_launches("ResNet-18 training", train_bn_launches, 18, train_steps)
     history = {k: v for k, v in tracker.history.items() if v}
     if not history or not all(np.isfinite(v).all() for v in history.values()):
         raise AssertionError(f"non-finite training history: {tracker.history}")
@@ -2983,6 +3128,7 @@ def main() -> int:
     torch.cuda.synchronize()
     r50_train_s = time.perf_counter() - t0
     r50_launches = CR.packed_raster_kernel.launches
+    r50_bn_launches = RN.batchnorm_kernels.launches
     r50_cli_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     lines = cli_out.getvalue().splitlines()
     print("\n".join(line for line in lines
@@ -2991,13 +3137,15 @@ def main() -> int:
     print(f"slice: train CLI at ResNet-50 with the silhouette task (64x64), 1 epoch at batch "
           f"{B}, 256x256, bf16 encoder, under the profiler ({train_steps} train + {val_steps} "
           f"val steps, first steps and the trace export included): {r50_train_s:.3f} s wall, "
-          f"packed kernel launches {r50_launches}, peak device memory {r50_cli_peak:.2f} GiB, "
-          f"{n_params} parameters")
+          f"packed kernel launches {r50_launches}, BatchNorm kernel launches "
+          f"{r50_bn_launches}, peak device memory {r50_cli_peak:.2f} GiB, {n_params} "
+          f"parameters")
     if f"regressor parameters: {n_params} (ResNet-50 + IEF)" not in lines:
         raise AssertionError("the train CLI did not print the regressor's parameter count")
     if r50_launches != train_steps + val_steps:
         raise AssertionError(f"ResNet-50 training renders: {r50_launches} packed launches, "
                              f"want {train_steps + val_steps}")
+    check_batchnorm_launches("ResNet-50 training", r50_bn_launches, 50, train_steps)
     history = {k: v for k, v in tracker.history.items() if v}
     if (not history["train_silhouette_losses"]
             or not all(np.isfinite(v).all() for v in history.values())):
@@ -3669,7 +3817,9 @@ def main() -> int:
         "orbax_launches": orbax_launches["faceid"],
         "codings_path_launches": codings_launches,
         "relayout_path_launches": layout_launches["faceid"],
-        "installed_launches": installed_launches["raster_faceid"]}]}))
+        "installed_launches": installed_launches["raster_faceid"]},
+        dict(batchnorm_entry, launches=train_bn_launches + r50_bn_launches,
+             r18_train_launches=train_bn_launches, r50_train_launches=r50_bn_launches)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -24,7 +24,6 @@ through the plain version.
 
 import ctypes
 import os
-import shutil
 import threading
 from typing import Tuple
 
@@ -46,36 +45,12 @@ PACKED_INIT = int(np.float32(FACEID_BG_DEPTH).view(np.int32)) & ~_ATTR_MASK
 _PLAIN_TEMP_BYTES = 1 << 28
 
 _PKG_DIR = native_build.PKG_DIR
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
-
-
-def _find_nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(candidate):
-        return candidate
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and PATH); "
-                           "the CUDA rasterisers are built from "
-                           f"{os.path.join(_PKG_DIR, 'csrc')} at first use")
-    return found
 
 
 def source_digest(source: str) -> str:
     """Hash of `source`, the headers of `csrc/` it includes and the nvcc
     flags: the key of a built library."""
-    return native_build.source_digest(source, NVCC_FLAGS)
-
-
-def build_library(source: str) -> str:
-    """Compile one `.cu` file of `csrc/` into `_build/` unless a library
-    built from the same source, headers and flags is there; nvcc's report
-    (registers, shared memory, spills) is kept beside it as
-    `<library>.log`.  Returns the library's path; raises RuntimeError when
-    nvcc fails."""
-    return native_build.build_library(source, _find_nvcc(), NVCC_FLAGS, ("-Xptxas", "-v"))
+    return native_build.source_digest(source, native_build.NVCC_FLAGS)
 
 
 _local_includes = native_build.local_includes
@@ -97,7 +72,8 @@ class _RasterKernel:
         """The loaded entry point, built at first use."""
         with self._lock:
             if self._fn is None:
-                fn = getattr(ctypes.CDLL(build_library(self.source)), f"{self.name}_launch")
+                lib = ctypes.CDLL(native_build.cuda_library(self.source))
+                fn = getattr(lib, f"{self.name}_launch")
                 fn.argtypes = self._argtypes
                 fn.restype = ctypes.c_int
                 self._fn = fn

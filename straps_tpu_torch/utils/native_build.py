@@ -4,14 +4,17 @@ first use, into `straps_tpu_torch/_build/` (gitignored).
 A library's file name carries a hash of its source, of every header of
 its directory that it includes (directly or through another) and of the
 compiler flags, so an edited source is rebuilt and an unchanged one is
-built once.  The CUDA kernels build with nvcc (`render/cuda_raster.py`);
-the host C++ (the JPEG decoder, the npy reader) with `g++`, or `$CXX`.
+built once.  The CUDA kernels build with nvcc (`cuda_library`: the
+rasterisers of `render/cuda_raster.py`, the BatchNorm of
+`models/resnet.py`); the host C++ (the JPEG decoder, the npy reader) with
+`g++`, or `$CXX`.
 """
 
 import ctypes
 import hashlib
 import os
 import re
+import shutil
 import subprocess
 import tempfile
 import threading
@@ -21,6 +24,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-pthread")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
 
 
 def local_includes(source: str) -> List[str]:
@@ -87,3 +92,24 @@ def host_library(name: str) -> ctypes.CDLL:
             _HOST_LIBS[name] = ctypes.CDLL(
                 build_library(source, os.environ.get("CXX", "g++"), HOST_FLAGS))
         return _HOST_LIBS[name]
+
+
+def find_nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and PATH); "
+                           f"the CUDA kernels are built from {CSRC_DIR} at first use")
+    return found
+
+
+def cuda_library(source: str) -> str:
+    """Compile one `.cu` file of `csrc/` with nvcc into `_build/` unless a
+    library built from the same source, headers and flags is there; nvcc's
+    report (registers, shared memory, spills) is kept beside it as
+    `<library>.log`.  Returns the library's path; raises RuntimeError when
+    nvcc fails."""
+    return build_library(source, find_nvcc(), NVCC_FLAGS, ("-Xptxas", "-v"))

@@ -36,8 +36,9 @@ def _env():
 
 
 def test_the_copy_holds_every_kernel_source(tmp_path):
-    assert CSRC == ["jpeg_aritab.h", "jpeg_decode.cpp", "png_decode.cpp", "raster_faceid.cu",
-                    "raster_packed.cu", "raster_span.cuh", "straps_io.cpp", "zstd_decode.cpp"]
+    assert CSRC == ["batchnorm.cu", "jpeg_aritab.h", "jpeg_decode.cpp", "png_decode.cpp",
+                    "raster_faceid.cu", "raster_packed.cu", "raster_span.cuh", "straps_io.cpp",
+                    "zstd_decode.cpp"]
     files = copy_package(str(ROOT), str(tmp_path))
     assert [f for f in files if f.startswith("straps_tpu_torch/csrc/")] == \
         [f"straps_tpu_torch/csrc/{name}" for name in CSRC]
