@@ -14,6 +14,7 @@ import torch
 
 from straps_tpu_torch.perception.rcnn import normalise_image_device
 from straps_tpu_torch.utils.device import resolve_device
+from straps_tpu_torch.utils.profiling import span
 
 
 def get_largest_centred_box_index(boxes: np.ndarray, valid: np.ndarray,
@@ -24,7 +25,10 @@ def get_largest_centred_box_index(boxes: np.ndarray, valid: np.ndarray,
     valid = np.asarray(valid).astype(bool)
     areas = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
     areas = np.where(valid, areas, -1.0)
-    order = np.argsort(-areas)
+    # A stable sort: of equal areas the earlier detection first.  numpy's
+    # default sort breaks ties differently by machine (SIMD sorts on CPUs
+    # that have them), and boxes clipped at the frame's edges tie.
+    order = np.argsort(-areas, kind="stable")
     for idx in order:
         if not valid[idx]:
             continue
@@ -42,7 +46,8 @@ def get_largest_centred_mask_index(masks: np.ndarray, valid: np.ndarray,
     masks = np.asarray(masks)
     valid = np.asarray(valid).astype(bool)
     areas = np.where(valid, masks.sum(axis=(1, 2)), -1.0)
-    order = np.argsort(-areas)
+    # Stable, as for boxes: masks filling boxes clipped alike tie in area.
+    order = np.argsort(-areas, kind="stable")
     for idx in order:
         if not valid[idx] or areas[idx] <= 0:
             continue
@@ -174,7 +179,8 @@ def run_detector_batched(model, images_rgb: torch.Tensor, test_size=None,
     for s in range(0, images_rgb.shape[0], chunk):
         batch = _resize_for_test(images_rgb[s:s + chunk].to(dev), test_size)
         out = model(normalise_image_device(batch))
-        outs.append({k: v.cpu().numpy() for k, v in out.items()})
+        with span("straps.detect.pull"):
+            outs.append({k: v.cpu().numpy() for k, v in out.items()})
     return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
 
 

@@ -14,9 +14,15 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-# Work of `nms_fixed`: blocks of candidates, and host synchronisations (one
-# per fixpoint round of a block).
-NMS_STATS = {"blocks": 0, "syncs": 0}
+# Work of `nms_fixed`: its calls, blocks of candidates, and host
+# synchronisations (one per fixpoint round of a block).
+NMS_STATS = {"calls": 0, "blocks": 0, "syncs": 0}
+
+
+def reset_nms_stats() -> None:
+    """Zero every count of `NMS_STATS`."""
+    for k in NMS_STATS:
+        NMS_STATS[k] = 0
 
 
 def box_area(boxes: torch.Tensor) -> torch.Tensor:
@@ -57,6 +63,7 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     single = boxes.dim() == 2
     if single:
         boxes, scores = boxes[None], scores[None]
+    NMS_STATS["calls"] += 1
     B, N = scores.shape
     dev = boxes.device
     order = torch.sort(-scores, dim=1, stable=True).indices

@@ -31,6 +31,7 @@ from straps_tpu_torch.perception.pointrend import (
     CoarseMaskHead, StandardPointHead, paste_mask, subdivision_inference,
 )
 from straps_tpu_torch.perception.rpn import RPNHead, generate_proposals
+from straps_tpu_torch.utils.profiling import span
 
 # detectron2's COCO pixel normalisation (BGR mean, std 1 for the R50 models).
 PIXEL_MEAN = np.asarray([103.53, 116.28, 123.675], np.float32)
@@ -87,22 +88,26 @@ class _DetectorBase(nn.Module):
         channels-last [(B, H, W, 256)], and the detections: (B, D, 4) boxes
         in the input frame, (B, D) scores and validity."""
         B, _, img_size, _ = images.shape
-        with torch.autocast(images.device.type, dtype=self.compute_dtype or torch.bfloat16,
-                            enabled=self.compute_dtype is not None):
+        with span("straps.detect.trunk"), torch.autocast(
+                images.device.type, dtype=self.compute_dtype or torch.bfloat16,
+                enabled=self.compute_dtype is not None):
             feats = self.backbone(images)
-        logits, deltas = self.proposal_generator.rpn_head(feats)
-        anchors = fpn_anchors(img_size, FPN_STRIDES, feat_sizes=[f.shape[-2:] for f in feats])
-        proposals, _, p_valid = generate_proposals(logits, deltas, anchors, img_size,
-                                                   post_nms_topk=self.post_nms_topk)
-        nhwc = [f.permute(0, 2, 3, 1).contiguous() for f in feats[:4]]
-        roi = pooled_box_features(nhwc, proposals, 7, aligned=self.box_pooler_aligned,
-                                  sampling_ratio=self.box_pooler_sampling_ratio,
-                                  compute_dtype=self.compute_dtype)
-        scores, box_deltas = self.roi_heads.box_predictor(self.roi_heads.box_head(roi))
-        P = proposals.shape[1]
-        boxes, det_scores, valid = box_inference(
-            scores.view(B, P, -1), box_deltas.view(B, P, -1), proposals, p_valid, img_size,
-            score_thresh=self.score_thresh, max_detections=self.max_detections)
+        with span("straps.detect.proposals"):
+            logits, deltas = self.proposal_generator.rpn_head(feats)
+            anchors = fpn_anchors(img_size, FPN_STRIDES,
+                                  feat_sizes=[f.shape[-2:] for f in feats])
+            proposals, _, p_valid = generate_proposals(logits, deltas, anchors, img_size,
+                                                       post_nms_topk=self.post_nms_topk)
+        with span("straps.detect.box"):
+            nhwc = [f.permute(0, 2, 3, 1).contiguous() for f in feats[:4]]
+            roi = pooled_box_features(nhwc, proposals, 7, aligned=self.box_pooler_aligned,
+                                      sampling_ratio=self.box_pooler_sampling_ratio,
+                                      compute_dtype=self.compute_dtype)
+            scores, box_deltas = self.roi_heads.box_predictor(self.roi_heads.box_head(roi))
+            P = proposals.shape[1]
+            boxes, det_scores, valid = box_inference(
+                scores.view(B, P, -1), box_deltas.view(B, P, -1), proposals, p_valid, img_size,
+                score_thresh=self.score_thresh, max_detections=self.max_detections)
         return nhwc, boxes, det_scores, valid
 
     def _out_frame(self, images: torch.Tensor):
@@ -121,11 +126,12 @@ class KeypointRCNN(_DetectorBase):
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         nhwc, boxes, scores, valid = self.trunk(images)
         B, D = valid.shape
-        heatmaps = self.roi_heads.keypoint_head(
-            pooled_box_features(nhwc, boxes, 14, compute_dtype=self.compute_dtype))
-        out_size, scale = self._out_frame(images)
-        out_boxes = boxes * scale
-        kp, kp_scores = keypoint_decode(heatmaps, out_boxes.reshape(B * D, 4), out_size)
+        with span("straps.detect.keypoint_head"):
+            heatmaps = self.roi_heads.keypoint_head(
+                pooled_box_features(nhwc, boxes, 14, compute_dtype=self.compute_dtype))
+            out_size, scale = self._out_frame(images)
+            out_boxes = boxes * scale
+            kp, kp_scores = keypoint_decode(heatmaps, out_boxes.reshape(B * D, 4), out_size)
         return {"boxes": out_boxes, "scores": scores, "valid": valid,
                 "keypoints": kp.view(B, D, -1, 2), "keypoint_scores": kp_scores.view(B, D, -1)}
 
@@ -144,16 +150,17 @@ class PointRendRCNN(_DetectorBase):
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         nhwc, boxes, scores, valid = self.trunk(images)
         B, D = valid.shape
-        mask_roi = roi_align(nhwc[0], boxes, 1.0 / FPN_STRIDES[0], 14, sampling_ratio=1,
-                             mode="zeros")                                  # (B, D, 14, 14, C)
-        coarse = self.roi_heads.mask_coarse_head(
-            mask_roi.reshape(B * D, 14, 14, -1).permute(0, 3, 1, 2))
-        image_index = torch.arange(B, device=images.device).repeat_interleave(D)
-        refined = subdivision_inference(self.roi_heads.mask_point_head, coarse, nhwc[0],
-                                        boxes.reshape(B * D, 4), image_index, channel=0)
-        out_size, scale = self._out_frame(images)
-        out_boxes = boxes * scale
-        masks = paste_mask(refined[:, 0], out_boxes.reshape(B * D, 4), out_size, out_size)
+        with span("straps.detect.mask"):
+            mask_roi = roi_align(nhwc[0], boxes, 1.0 / FPN_STRIDES[0], 14, sampling_ratio=1,
+                                 mode="zeros")                              # (B, D, 14, 14, C)
+            coarse = self.roi_heads.mask_coarse_head(
+                mask_roi.reshape(B * D, 14, 14, -1).permute(0, 3, 1, 2))
+            image_index = torch.arange(B, device=images.device).repeat_interleave(D)
+            refined = subdivision_inference(self.roi_heads.mask_point_head, coarse, nhwc[0],
+                                            boxes.reshape(B * D, 4), image_index, channel=0)
+            out_size, scale = self._out_frame(images)
+            out_boxes = boxes * scale
+            masks = paste_mask(refined[:, 0], out_boxes.reshape(B * D, 4), out_size, out_size)
         return {"boxes": out_boxes, "scores": scores, "valid": valid,
                 "masks": masks.view(B, D, out_size, out_size)}
 

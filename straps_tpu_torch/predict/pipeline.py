@@ -12,6 +12,7 @@ DensePose silhouettes.
 import glob
 import os
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -235,11 +236,12 @@ def build_detector_models(cfg: PredictConfig, output_size: int, device="cuda",
                                               (silhouette, cfg.silhouette_checkpoint))):
         with torch.device("meta"):
             model = cls(**kw, **extra)
-        if ckpt:
-            models.append(load_detector_state(model, load_d2_pkl(ckpt), dev))
-        else:
-            rcnn.init_random_weights(model, torch.Generator().manual_seed(seed + i))
-            models.append(model.to(dev).eval())
+        with span("straps.detect.build"):
+            if ckpt:
+                models.append(load_detector_state(model, load_d2_pkl(ckpt), dev))
+            else:
+                rcnn.init_random_weights(model, torch.Generator().manual_seed(seed + i))
+                models.append(model.to(dev).eval())
     return models[0], models[1]
 
 
@@ -257,23 +259,32 @@ def read_image(path: str) -> np.ndarray:
     raise ValueError(f"{path}: neither a JPEG nor a PNG file (first bytes {data[:8].hex()})")
 
 
+def _read_padded(path: str) -> np.ndarray:
+    """`read_image`, padded to a square with zeros."""
+    img = read_image(path)
+    top, left = pad_to_square_params(*img.shape[:2])
+    return np.pad(img, ((top, top), (left, left), (0, 0)))
+
+
 def read_images(input_dir: str, size: int, device) -> Tuple[List[str], torch.Tensor]:
     """The folder's `*.png` and `*.jpg` images in the JAX pipeline's order
     (sorted by full path, so a PNG and a JPEG of one stem are two entries):
     each padded to a square and resized to (size, size) as cv2's
     INTER_LINEAR does (`predict_3D.py:97-108`) -> names and (N, size,
-    size, 3) uint8 RGB on `device`."""
+    size, 3) uint8 RGB on `device`.
+
+    The images are decoded in a thread a core (the decoders are host C++
+    called through ctypes, which releases the GIL); the resizes follow on
+    `device` in the folder's order as the decodes come in.  The first
+    image that does not decode raises, as a loop over the folder would."""
     paths = sorted(glob.glob(os.path.join(input_dir, "*.png"))
                    + glob.glob(os.path.join(input_dir, "*.jpg")))
     if not paths:
         raise FileNotFoundError(f"no images in {input_dir}")
-    names, images = [], []
-    for path in paths:
-        img = read_image(path)
-        top, left = pad_to_square_params(*img.shape[:2])
-        img = np.pad(img, ((top, top), (left, left), (0, 0)))
-        images.append(cv2_resize_linear_u8(torch.as_tensor(img, device=device), size, size))
-        names.append(os.path.splitext(os.path.basename(path))[0])
+    with ThreadPoolExecutor(min(len(paths), os.cpu_count() or 1)) as pool:
+        images = [cv2_resize_linear_u8(torch.as_tensor(img, device=device), size, size)
+                  for img in pool.map(_read_padded, paths)]
+    names = [os.path.splitext(os.path.basename(path))[0] for path in paths]
     return names, torch.stack(images)
 
 
@@ -308,18 +319,22 @@ def detect_and_build_proxies(cfg: PredictConfig, build_vis: bool = True,
         warnings.warn(f"RANDOM-WEIGHT DETECTORS in use ({missing}): proxy representations "
                       f"and all downstream SMPL predictions are meaningless.", UserWarning,
                       stacklevel=2)
-    names, images = read_images(cfg.input_dir, size, dev)
+    with span("straps.predict.decode"):
+        names, images = read_images(cfg.input_dir, size, dev)
     kp_model, silh_model = build_detector_models(cfg, size, dev, build_vis=build_vis)
-    kp_out = run_detector_batched(kp_model, images, test_size)
-    silh_out = run_detector_batched(silh_model, images, test_size)
-    kps, sils, selected = [], [], []
-    for i in range(len(names)):
-        kps.append(select_keypoints(kp_out, i, size, size))
-        sil, sel = select_silhouette(silh_out, i)
-        sils.append(sil)
-        selected.append(sel)
-    joints = [kp[:, :2] for kp in kps]
-    save_proxies(os.path.join(cfg.out_dir, "proxies"), names, sils, joints)
+    with span("straps.detect.keypoint"):
+        kp_out = run_detector_batched(kp_model, images, test_size)
+    with span("straps.detect.silhouette"):
+        silh_out = run_detector_batched(silh_model, images, test_size)
+    with span("straps.detect.select"):
+        kps, sils, selected = [], [], []
+        for i in range(len(names)):
+            kps.append(select_keypoints(kp_out, i, size, size))
+            sil, sel = select_silhouette(silh_out, i)
+            sils.append(sil)
+            selected.append(sel)
+        joints = [kp[:, :2] for kp in kps]
+        save_proxies(os.path.join(cfg.out_dir, "proxies"), names, sils, joints)
     proxies, _ = batch_silhouettes_joints_to_proxies(
         torch.as_tensor(np.stack(sils), device=dev), torch.as_tensor(np.stack(joints), device=dev),
         cfg.img_wh, heatmap_mode=heatmap_mode)

@@ -308,3 +308,19 @@ def test_read_image_chooses_the_decoder_by_content(tmp_path):
     assert cv2.imread(str(tmp_path / "c.png")) is None
     with pytest.raises(ValueError, match="c.png: neither a JPEG nor a PNG"):
         read_image(str(tmp_path / "c.png"))
+
+
+def test_read_images_raises_for_the_first_image_that_does_not_decode(tmp_path):
+    """`read_images` decodes in threads, yet a folder with two unreadable
+    files raises for the first in the folder's order, as a loop over the
+    folder would, whichever decode ends first."""
+    from straps_tpu_torch.predict.pipeline import read_images
+    src = os.path.join(FIXTURE_DIR, "palette8_trns.png")
+    with open(src, "rb") as f:
+        good = f.read()
+    for i in range(12):
+        (tmp_path / f"img_{i:02d}.png").write_bytes(good)
+    (tmp_path / "img_05b.png").write_bytes(b"not an image")
+    (tmp_path / "img_09b.png").write_bytes(good[:8])
+    with pytest.raises(ValueError, match="img_05b.png"):
+        read_images(str(tmp_path), 32, "cpu")
