@@ -17,6 +17,11 @@ ALL_METRICS = ("pves", "pves_sc", "pves_pa", "pve-ts", "pve-ts_sc", "pve-ts_pa",
                "mpjpes", "mpjpes_sc", "mpjpes_pa", "pose_mses", "shape_mses",
                "joints2D_l2es", "silhouette_ious")
 
+# Metrics whose Procrustes solve checks on the host that it converged
+# (`torch.linalg.svd` on CUDA waits for the device), so that no CUDA graph
+# can capture them.
+HOST_CHECKED_METRICS = ("pves_pa", "pve-ts_pa", "mpjpes_pa")
+
 _ALIGN = {"": lambda p, t: p,
           "_sc": scale_and_translation_transform,
           "_pa": compute_similarity_transform}

@@ -19,7 +19,9 @@ class SingleInputRegressor(nn.Module):
     """NHWC proxy (B, H, W, C) -> cam (B, 3), pose6d (B, 144), shape (B, 10).
 
     `compute_dtype='bfloat16'` runs the encoder under autocast; parameters,
-    the IEF head and the outputs stay float32.
+    the IEF head and the outputs stay float32.  Autocast keeps no cache of
+    the weights' casts (each weight is cast once a forward pass either
+    way), so that a CUDA graph can capture the forward pass.
     """
 
     def __init__(self, initial_estimate, in_channels: int = 18,
@@ -44,7 +46,8 @@ class SingleInputRegressor(nn.Module):
         # NHWC at the boundary; the permuted view is channels-last in memory.
         x = proxy.permute(0, 3, 1, 2)
         if self.compute_dtype == "bfloat16":
-            ctx = torch.autocast(device_type=x.device.type, dtype=torch.bfloat16)
+            ctx = torch.autocast(device_type=x.device.type, dtype=torch.bfloat16,
+                                 cache_enabled=False)
         else:
             # A bfloat16 proxy (the predict input cast) promotes to float32.
             ctx = contextlib.nullcontext()

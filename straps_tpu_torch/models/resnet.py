@@ -30,6 +30,7 @@ from straps_tpu_torch.utils import native_build
 KERNEL_THREADS = 256
 _TARGET_BLOCKS = 4 * 132
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_TILES = 2048
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,11 +115,15 @@ class _BatchNormKernels:
                 raise ValueError(f"BatchNorm kernels: {name} must be a contiguous float32 "
                                  f"{shape} tensor on {dev}")
 
-    def _tile_counters(self, dev: torch.device, tiles: int) -> torch.Tensor:
+    def _tile_counters(self, dev: torch.device) -> torch.Tensor:
+        """The stream's counters, made at its first launch and never
+        replaced, for a CUDA graph captured on the stream keeps their
+        address: as many as any channel count gives tiles (`_layout` takes
+        c < 65536, so at most 2048 tiles of 32 lanes)."""
         key = (dev, torch.cuda.current_stream(dev).cuda_stream)
         counters = self._counters.get(key)
-        if counters is None or counters.numel() < tiles:
-            counters = self._counters[key] = torch.zeros(max(tiles, 256), dtype=torch.int32,
+        if counters is None:
+            counters = self._counters[key] = torch.zeros(_MAX_TILES, dtype=torch.int32,
                                                          device=dev)
         return counters
 
@@ -137,7 +142,7 @@ class _BatchNormKernels:
         partials = torch.empty((slices, 2, c), dtype=torch.float64, device=x.device)
         sums = torch.empty((2, c), dtype=torch.float32, device=x.device)
         self._launch("batchnorm_stats_launch", x.device, x, partials, sums,
-                     self._tile_counters(x.device, tiles), code, m, c, vec, lanes, slices)
+                     self._tile_counters(x.device), code, m, c, vec, lanes, slices)
         return sums
 
     def normalize(self, x, sums, weight, bias, running_mean, running_var,
@@ -170,7 +175,7 @@ class _BatchNormKernels:
         dweight = torch.empty((c,), dtype=torch.float32, device=x.device)
         dbias = torch.empty((c,), dtype=torch.float32, device=x.device)
         self._launch("batchnorm_backward_sums_launch", x.device, dy, x, stats, partials, sums,
-                     self._tile_counters(x.device, tiles), dweight, dbias, code, m, c, vec,
+                     self._tile_counters(x.device), dweight, dbias, code, m, c, vec,
                      lanes, slices)
         return sums, dweight, dbias
 

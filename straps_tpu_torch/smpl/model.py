@@ -7,6 +7,7 @@ Float32 throughout; on CUDA the entry points switch TF32 off
 `precision="highest"`.
 """
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -15,7 +16,18 @@ from straps_tpu_torch import constants as C
 from straps_tpu_torch.geometry.rotations import rodrigues
 from straps_tpu_torch.smpl.assets import SmplAssets
 
-_EXTRA_IDS = [C.SMPL_VERTEX_IDS[k] for k in C.SMPL_EXTRA_KEYPOINT_ORDER]
+_EXTRA_IDS = tuple(C.SMPL_VERTEX_IDS[k] for k in C.SMPL_EXTRA_KEYPOINT_ORDER)
+
+
+@functools.lru_cache(maxsize=None)
+def device_index(ids: tuple, device: torch.device) -> torch.Tensor:
+    """The int64 index tensor of `ids` on `device`, made once: indexing
+    with it gathers what indexing with the list gathers, without the
+    host-to-device copy (and its wait) that a list costs on every call,
+    so that a CUDA graph can capture the gather.  Made outside inference
+    mode, as autograd saves it for a later backward pass."""
+    with torch.inference_mode(False):
+        return torch.tensor(ids, dtype=torch.int64, device=device)
 
 
 class SmplOutput(NamedTuple):
@@ -37,7 +49,7 @@ def _rigid_transforms(rotmats: torch.Tensor, joints: torch.Tensor,
     """
     B, J = rotmats.shape[:2]
     rel = joints.clone()
-    rel[:, 1:] -= joints[:, list(parents[1:])]
+    rel[:, 1:] -= joints[:, device_index(tuple(parents[1:]), joints.device)]
     local = torch.zeros((B, J, 4, 4), dtype=rotmats.dtype, device=rotmats.device)
     local[..., :3, :3] = rotmats
     local[..., :3, 3] = rel
@@ -99,7 +111,7 @@ def smpl_forward(assets: SmplAssets, betas: torch.Tensor,
 def _joint_superset_output(assets: SmplAssets, verts: torch.Tensor,
                            tree_joints: torch.Tensor) -> SmplOutput:
     """24 tree joints + 21 vertex keypoints + 45 regressed joints."""
-    picked = verts[:, _EXTRA_IDS, :]
+    picked = verts[:, device_index(_EXTRA_IDS, verts.device), :]
     reg = torch.cat([assets.J_regressor_extra, assets.J_regressor_cocoplus,
                      assets.J_regressor_h36m], dim=0)          # (45, V)
     regressed = torch.einsum("jv,bvc->bjc", reg, verts)
@@ -119,5 +131,7 @@ def smpl_forward_axis_angle(assets: SmplAssets, betas: torch.Tensor,
 def select_joint_sets(joints_all: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """90-joint superset -> (H36M-LSP14 3D joints, COCO17 joints)."""
-    h36m = joints_all[:, C.ALL_JOINTS_TO_H36M_MAP]
-    return h36m[:, C.H36M_TO_J14], joints_all[:, C.ALL_JOINTS_TO_COCO_MAP]
+    dev = joints_all.device
+    h36m = joints_all[:, device_index(tuple(C.ALL_JOINTS_TO_H36M_MAP), dev)]
+    return (h36m[:, device_index(tuple(C.H36M_TO_J14), dev)],
+            joints_all[:, device_index(tuple(C.ALL_JOINTS_TO_COCO_MAP), dev)])

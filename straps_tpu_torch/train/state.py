@@ -7,7 +7,7 @@ a replica: every rank holds the same values, rank 0's at creation.
 """
 
 import hashlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import torch
@@ -23,6 +23,8 @@ class TrainState:
     optimizer: torch.optim.Adam
     step: int = 0
     mesh: Optional[DataMesh] = None       # the data mesh the state is replicated over
+    # The update's CUDA graphs by batch shape (`train/step.py`); not saved.
+    update_graphs: dict = field(default_factory=dict, repr=False)
 
     def state_dict(self) -> dict:
         """Tensors and plain containers only (`torch.load(weights_only=True)`
