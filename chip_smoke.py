@@ -314,10 +314,10 @@ def batchnorm_kernel_entry(card, batch=140, depth=50):
     arithmetic is not flax's), and the least time (10 bytes an element: x
     read and y written, dy and x read and dx written, over 3.35 TB/s).
     Returns the `kernels` line's entry; raises on a mismatch."""
-    from straps_tpu_torch.models import resnet as RN
+    from straps_tpu_torch.models import batchnorm as BN
     from torch_bn import bn_input_shapes, channel_bounds, float64_truth, within_bound
 
-    K = RN.batchnorm_kernels
+    K = BN.batchnorm_kernels
     shapes = bn_input_shapes(depth, batch)
     dev = torch.device("cuda")
     cl = torch.channels_last
@@ -332,7 +332,7 @@ def batchnorm_kernel_entry(card, batch=140, depth=50):
         x[:, c // 2] = 0.7
         x = x.to(dev, torch.bfloat16, memory_format=cl)
         dy = torch.randn(shape, generator=g).to(dev, torch.bfloat16, memory_format=cl)
-        norm = RN.BatchNorm2d(c).to(dev).train()
+        norm = BN.BatchNorm2d(c).to(dev).train()
         with torch.no_grad():
             norm.weight.copy_(torch.rand(c, generator=g) + 0.5)
             norm.bias.copy_(torch.randn(c, generator=g))
@@ -343,8 +343,8 @@ def batchnorm_kernel_entry(card, batch=140, depth=50):
         y, st = K.normalize(x, sums, norm.weight, norm.bias, rm, rv, tracked, count, 1e-5, 0.1)
         bsums, _, _ = K.backward_sums(dy, x, st)
         dx = K.backward_dx(dy, x, st, bsums, count)
-        if not (torch.equal(y, RN.batchnorm_normalize_reference(x, st, norm.bias))
-                and torch.equal(dx, RN.batchnorm_backward_dx_reference(dy, x, st, bsums,
+        if not (torch.equal(y, BN.batchnorm_normalize_reference(x, st, norm.bias))
+                and torch.equal(dx, BN.batchnorm_backward_dx_reference(dy, x, st, bsums,
                                                                         count))):
             raise AssertionError(f"BatchNorm kernels differ from their plain version at {shape}")
         runs = []
@@ -895,11 +895,8 @@ def ddp_step_times(corpus):
 
 
 def reset_launches():
-    from straps_tpu_torch.models import resnet as RN
-    from straps_tpu_torch.render import cuda_raster as CR
-    for k in CR.KERNELS:
-        k.launches = 0
-    RN.batchnorm_kernels.launches = 0
+    from straps_tpu_torch.utils import native_build
+    native_build.reset_launches()
 
 
 def write_eval_npz(path, n, seed):
@@ -2581,19 +2578,20 @@ def installed_copy_child(site, spec_json):
                     getattr(module, name)
         names += len(module.JAX_COUNTERPARTS)
     from straps_tpu_torch.cli import run_eval, run_predict
-    from straps_tpu_torch.models import resnet as RN
     from straps_tpu_torch.render import cuda_raster as CR
     from straps_tpu_torch.utils import native_build
 
     def timed(build, arg):
         t = time.perf_counter()
         path = build(arg)
-        return getattr(path, "_name", path), time.perf_counter() - t
+        return path, time.perf_counter() - t
 
-    sources = [k.source for k in CR.KERNELS] + [RN.batchnorm_kernels.source]
+    sources = [k.source for k in native_build.KERNEL_LIBRARIES]
     with ThreadPoolExecutor(len(sources) + len(HOST_SOURCES)) as pool:
         jobs = ([pool.submit(timed, native_build.cuda_library, src) for src in sources]
-                + [pool.submit(timed, native_build.host_library, h) for h in HOST_SOURCES])
+                + [pool.submit(timed, native_build.cxx_library,
+                               os.path.join(native_build.CSRC_DIR, f"{h}.cpp"))
+                   for h in HOST_SOURCES])
         builds = [job.result() for job in jobs]
     build_dir = os.path.join(pkg, "_build")
     for path, _ in builds:
@@ -2602,12 +2600,12 @@ def installed_copy_child(site, spec_json):
     for src in sources:
         if not src.startswith(pkg):
             raise AssertionError(f"a kernel builds from {src}, outside the copy")
-    for kernel in CR.KERNELS:
-        kernel.function()
-    RN.batchnorm_kernels.library()
+    for kernel in native_build.KERNEL_LIBRARIES:
+        kernel.library()
 
+    raster = (CR.packed_raster_kernel, CR.faceid_raster_kernel)
     recorded = []
-    for kernel in CR.KERNELS:
+    for kernel in raster:
         cls = type(kernel)
 
         def record(self, *args, _call=cls.__call__):
@@ -2618,12 +2616,11 @@ def installed_copy_child(site, spec_json):
         cls.__call__ = record
 
     def cli(main, argv):
-        for kernel in CR.KERNELS:
-            kernel.launches = 0
+        native_build.reset_launches()
         with contextlib.redirect_stdout(io.StringIO()):
             result = main(argv)
         torch.cuda.synchronize()
-        return result, {k.name: k.launches for k in CR.KERNELS}
+        return result, {k.name: k.launches for k in raster}
 
     t0 = time.perf_counter()
     metrics, eval_launches = cli(run_eval.main, [
@@ -2775,15 +2772,16 @@ def main() -> int:
     # together.
     from straps_tpu_torch.utils import native_build
     t0 = time.perf_counter()
-    from straps_tpu_torch.models import resnet as RN
-    with ThreadPoolExecutor(len(CR.KERNELS) + 1 + len(HOST_SOURCES)) as pool:
-        host = [pool.submit(native_build.host_library, name) for name in HOST_SOURCES]
-        libs = list(pool.map(native_build.cuda_library,
-                             [k.source for k in CR.KERNELS] + [RN.batchnorm_kernels.source]))
-        host_libs = [h.result()._name for h in host]
-    for kernel in CR.KERNELS:
-        kernel.function()
-    RN.batchnorm_kernels.library()
+    from straps_tpu_torch.models import batchnorm as BN
+    sources = [k.source for k in native_build.KERNEL_LIBRARIES]
+    with ThreadPoolExecutor(len(sources) + len(HOST_SOURCES)) as pool:
+        host = [pool.submit(native_build.cxx_library,
+                            os.path.join(native_build.CSRC_DIR, f"{h}.cpp"))
+                for h in HOST_SOURCES]
+        libs = list(pool.map(native_build.cuda_library, sources))
+        host_libs = [h.result() for h in host]
+    for kernel in native_build.KERNEL_LIBRARIES:
+        kernel.library()
     print(f"build: {', '.join(libs + host_libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         with open(lib + ".log") as f:
@@ -2958,7 +2956,7 @@ def main() -> int:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_launches = CR.packed_raster_kernel.launches
-    train_bn_launches = RN.batchnorm_kernels.launches
+    train_bn_launches = BN.batchnorm_kernels.launches
     train_steps, val_steps = 4, 2         # 560 and 280 corpus samples at batch 140
     print("\n".join(line for line in cli_out.getvalue().splitlines()
                     if line.startswith(("epoch ", "Training completed"))))
@@ -3128,7 +3126,7 @@ def main() -> int:
     torch.cuda.synchronize()
     r50_train_s = time.perf_counter() - t0
     r50_launches = CR.packed_raster_kernel.launches
-    r50_bn_launches = RN.batchnorm_kernels.launches
+    r50_bn_launches = BN.batchnorm_kernels.launches
     r50_cli_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     lines = cli_out.getvalue().splitlines()
     print("\n".join(line for line in lines

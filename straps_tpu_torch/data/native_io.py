@@ -9,7 +9,6 @@ copied, and float64, integers and bool convert as numpy's
 """
 
 import ctypes
-import functools
 import weakref
 from typing import List, Sequence
 
@@ -35,23 +34,20 @@ class _NpyInfo(ctypes.Structure):
     ]
 
 
-@functools.lru_cache(maxsize=None)
-def get_library() -> ctypes.CDLL:
-    """The native reader, built at first use; raises RuntimeError when it
-    does not build."""
-    lib = host_library("straps_io")
-    lib.si_open_npy.argtypes = [ctypes.c_char_p, ctypes.POINTER(_NpyInfo)]
-    lib.si_open_npy.restype = ctypes.c_int
-    lib.si_close_npy.argtypes = [ctypes.POINTER(_NpyInfo)]
-    lib.si_close_npy.restype = None
-    lib.si_load_batch_f32.argtypes = [
-        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int64, ctypes.POINTER(ctypes.c_float),
-        ctypes.c_int64, ctypes.c_int32, ctypes.POINTER(ctypes.c_int64)]
-    lib.si_load_batch_f32.restype = ctypes.c_int
-    lib.si_shuffled_indices.argtypes = [
-        ctypes.c_int64, ctypes.c_uint64, ctypes.POINTER(ctypes.c_int64)]
-    lib.si_shuffled_indices.restype = None
-    return lib
+_SIGNATURES = {
+    "si_open_npy": ([ctypes.c_char_p, ctypes.POINTER(_NpyInfo)], ctypes.c_int),
+    "si_close_npy": ([ctypes.POINTER(_NpyInfo)], None),
+    "si_load_batch_f32": ([ctypes.POINTER(ctypes.c_char_p), ctypes.c_int64,
+                           ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int32,
+                           ctypes.POINTER(ctypes.c_int64)], ctypes.c_int),
+    "si_shuffled_indices": ([ctypes.c_int64, ctypes.c_uint64, ctypes.POINTER(ctypes.c_int64)],
+                            None),
+}
+
+
+def get_library():
+    """The native reader's library, built at first use (`host_library`)."""
+    return host_library("straps_io", _SIGNATURES)
 
 
 _ERRORS = {-1: "not a .npy file", -2: "truncated header", -3: "unreadable header",

@@ -81,7 +81,7 @@ def bfloat16_variance_layers(variables: dict) -> Dict[str, str]:
     whose running variance is bfloat16 (a torch.bfloat16 tensor): flax
     computes their `rsqrt(var + eps)` in bfloat16, rounding the root too
     when the scale is bfloat16 ("root")
-    (`models/resnet.py::BatchNorm2d.bfloat16_variance`)."""
+    (`models/batchnorm.py::BatchNorm2d.bfloat16_variance`)."""
     def low(v):
         return isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16
 

@@ -12,10 +12,12 @@ kernel inventory.  The JAX package's names and the port's:
 | `soft_silhouette` | `render/soft_silhouette.py` |
 | `nms_fixed`, `roi_align`, `multilevel_roi_align`, `bilinear_sample`, `pairwise_iou`, `encode_boxes`, `decode_boxes` | `perception/ops.py` |
 | `load_npy_batch`, `shuffled_indices`, `mmap_npy` | `data/native_io.py` over `csrc/straps_io.cpp` |
+| none: flax's `nn.BatchNorm` in training mode, which XLA fuses | `models/batchnorm.py::BatchNorm2d` over `csrc/batchnorm.cu` (hand-written CUDA C++ for sm_90a, four kernels); their plain versions `batchnorm_*_reference` |
 
-`JAX_COUNTERPARTS` holds the same table.  Importing this package builds
-nothing: the CUDA kernels build at their first launch on a card, the host
-C++ at its first call.
+`JAX_COUNTERPARTS` holds the table's JAX names.  Every library builds,
+loads and launches through `utils/native_build.py`, and importing this
+package builds nothing: a CUDA kernel at its first launch on a card, the
+host C++ at its first call.
 """
 
 from straps_tpu_torch.data.native_io import load_npy_batch, mmap_npy, shuffled_indices

@@ -5,7 +5,7 @@ partitioner shards the batch over the `data` axis and inserts the gradient
 all-reduce.  Here every device is a process, a rank of a
 `torch.distributed` group that holds B/W rows of the global batch, and the
 collectives are written out where the global batch needs them: the
-BatchNorm statistics (`models/resnet.py`), the loss's counts
+BatchNorm statistics (`models/batchnorm.py`), the loss's counts
 (`losses/multi_task.py`), the gradients and the reported losses
 (`train/step.py`), and the gathered outputs and metrics (`gather_batch`).
 A step over W ranks is then the step over the global batch.

@@ -23,8 +23,6 @@ through the plain version.
 """
 
 import ctypes
-import os
-import threading
 from typing import Tuple
 
 import numpy as np
@@ -44,121 +42,73 @@ PACKED_INIT = int(np.float32(FACEID_BG_DEPTH).view(np.int32)) & ~_ATTR_MASK
 # Bytes of one (sub-batch, chunk, rows, W) temporary of a plain version.
 _PLAIN_TEMP_BYTES = 1 << 28
 
-_PKG_DIR = native_build.PKG_DIR
+
+def _check(img_h: int, img_w: int, **inputs):
+    """Raise ValueError unless `inputs` ({name: (tensor, dtype, shape)},
+    `planes` among them) are contiguous, of their dtype and shape, on one
+    CUDA device, with faces padded to FACE_CHUNK and the planes and
+    attributes 16-byte aligned (the kernels stage them with bulk copies)."""
+    planes = inputs["planes"][0]
+    B, Fp = planes.shape[:2]
+    dev = planes.device
+    for name, (t, dtype, shape) in inputs.items():
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: want contiguous {dtype} {shape} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device} "
+                f"(contiguous={t.is_contiguous()})")
+    misaligned = any(inputs[n][0].data_ptr() % 16 for n in ("planes", "attr") if n in inputs)
+    if dev.type != "cuda" or Fp % FACE_CHUNK or misaligned:
+        raise ValueError(f"kernel needs CUDA tensors, faces padded to "
+                         f"{FACE_CHUNK} and 16-byte aligned planes and attributes")
+    if not (0 < img_h and 0 < img_w and B < 65536):
+        raise ValueError(f"bad launch shape B={B} H={img_h} W={img_w}")
 
 
-def source_digest(source: str) -> str:
-    """Hash of `source`, the headers of `csrc/` it includes and the nvcc
-    flags: the key of a built library."""
-    return native_build.source_digest(source, native_build.NVCC_FLAGS)
-
-
-_local_includes = native_build.local_includes
-
-
-class _RasterKernel:
-    """One kernel library built from `csrc/<name>.cu`, its C entry point
-    `<name>_launch` and its launch count."""
-
-    def __init__(self, name: str, argtypes):
-        self.name = name
-        self.source = os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
-        self.launches = 0
-        self._argtypes = argtypes
-        self._fn = None
-        self._lock = threading.Lock()
-
-    def function(self):
-        """The loaded entry point, built at first use."""
-        with self._lock:
-            if self._fn is None:
-                lib = ctypes.CDLL(native_build.cuda_library(self.source))
-                fn = getattr(lib, f"{self.name}_launch")
-                fn.argtypes = self._argtypes
-                fn.restype = ctypes.c_int
-                self._fn = fn
-            return self._fn
-
-    def _check(self, img_h: int, img_w: int, **inputs):
-        """Raise ValueError unless `inputs` ({name: (tensor, dtype, shape)},
-        `planes` among them) are contiguous, of their dtype and shape, on
-        one CUDA device, with faces padded to FACE_CHUNK and the planes
-        and attributes 16-byte aligned (the kernels stage them with bulk
-        copies)."""
-        planes = inputs["planes"][0]
-        B, Fp = planes.shape[:2]
-        dev = planes.device
-        for name, (t, dtype, shape) in inputs.items():
-            if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                    or not t.is_contiguous():
-                raise ValueError(
-                    f"{name}: want contiguous {dtype} {shape} on {dev}, got "
-                    f"{t.dtype} {tuple(t.shape)} on {t.device} "
-                    f"(contiguous={t.is_contiguous()})")
-        misaligned = any(inputs[n][0].data_ptr() % 16 for n in ("planes", "attr") if n in inputs)
-        if dev.type != "cuda" or Fp % FACE_CHUNK or misaligned:
-            raise ValueError(f"kernel needs CUDA tensors, faces padded to "
-                             f"{FACE_CHUNK} and 16-byte aligned planes and attributes")
-        if not (0 < img_h and 0 < img_w and B < 65536):
-            raise ValueError(f"bad launch shape B={B} H={img_h} W={img_w}")
-
-    def _launch(self, *args):
-        """Call the entry point on the current stream; count the launch."""
-        fn = self.function()
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{self.name}_launch: CUDA error {err}")
-        self.launches += 1
-
-
-class _PackedRasterKernel(_RasterKernel):
+class _PackedRasterKernel(native_build.CudaKernels):
     def __init__(self):
-        super().__init__("raster_packed",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        super().__init__("raster_packed.cu",
+                         {"raster_packed_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5})
 
     def __call__(self, planes: torch.Tensor, bounds: torch.Tensor,
                  attr: torch.Tensor, img_h: int, img_w: int) -> torch.Tensor:
         """planes (B, Fp, 12) f32, bounds (B, Fp/128, 2) int32, attr (Fp,)
         int32, all contiguous on one CUDA device -> (B, H, W) int32 keys."""
         B, Fp = planes.shape[:2]
-        self._check(img_h, img_w,
-                    planes=(planes, torch.float32, (B, Fp, 12)),
-                    bounds=(bounds, torch.int32, (B, Fp // FACE_CHUNK, 2)),
-                    attr=(attr, torch.int32, (Fp,)))
+        _check(img_h, img_w,
+               planes=(planes, torch.float32, (B, Fp, 12)),
+               bounds=(bounds, torch.int32, (B, Fp // FACE_CHUNK, 2)),
+               attr=(attr, torch.int32, (Fp,)))
         out = torch.empty((B, img_h, img_w), dtype=torch.int32, device=planes.device)
-        with torch.cuda.device(planes.device):
-            self._launch(bounds.data_ptr(), planes.data_ptr(), attr.data_ptr(),
-                         out.data_ptr(), B, Fp // FACE_CHUNK, img_h, img_w,
-                         PACKED_INIT)
+        self.launch("raster_packed_launch", planes.device, bounds, planes, attr, out, B,
+                    Fp // FACE_CHUNK, img_h, img_w, PACKED_INIT)
         return out
 
 
-class _FaceIdRasterKernel(_RasterKernel):
+class _FaceIdRasterKernel(native_build.CudaKernels):
     def __init__(self):
-        super().__init__("raster_faceid",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                         + [ctypes.c_float, ctypes.c_void_p])
+        super().__init__("raster_faceid.cu",
+                         {"raster_faceid_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                                                  + [ctypes.c_float]})
 
     def __call__(self, planes: torch.Tensor, bounds: torch.Tensor,
                  img_h: int, img_w: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """planes (B, Fp, 12) f32, bounds (B, Fp/128, 2) int32, contiguous
         on one CUDA device -> face ids (B, H, W) int32, depth (B, H, W) f32."""
         B, Fp = planes.shape[:2]
-        self._check(img_h, img_w,
-                    planes=(planes, torch.float32, (B, Fp, 12)),
-                    bounds=(bounds, torch.int32, (B, Fp // FACE_CHUNK, 2)))
+        _check(img_h, img_w,
+               planes=(planes, torch.float32, (B, Fp, 12)),
+               bounds=(bounds, torch.int32, (B, Fp // FACE_CHUNK, 2)))
         fid = torch.empty((B, img_h, img_w), dtype=torch.int32, device=planes.device)
         depth = torch.empty((B, img_h, img_w), dtype=torch.float32, device=planes.device)
-        with torch.cuda.device(planes.device):
-            self._launch(bounds.data_ptr(), planes.data_ptr(), fid.data_ptr(),
-                         depth.data_ptr(), B, Fp // FACE_CHUNK, img_h, img_w,
-                         FACEID_BG_DEPTH)
+        self.launch("raster_faceid_launch", planes.device, bounds, planes, fid, depth, B,
+                    Fp // FACE_CHUNK, img_h, img_w, FACEID_BG_DEPTH)
         return fid, depth
 
 
 packed_raster_kernel = _PackedRasterKernel()
 faceid_raster_kernel = _FaceIdRasterKernel()
-KERNELS = (packed_raster_kernel, faceid_raster_kernel)
 
 
 def _plane_eval(p: torch.Tensor, k: int, xs: torch.Tensor,

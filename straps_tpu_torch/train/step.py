@@ -18,7 +18,7 @@ the global batch, gathered in global order.
 
 On a card and without a mesh, the update's forward pass, loss, backward
 pass and the per-frame metrics that a graph can hold are one CUDA graph
-(`torch.cuda.CUDAGraph`) for each batch shape (`train_on_batch`): the
+(`utils/native_build.py::KernelGraph`) for each batch shape (`train_on_batch`): the
 first update of a shape runs eagerly, the second is captured and
 replayed, every later one copies its batch into the graph's inputs and
 replays it.  Adam, and the Procrustes metrics, whose solver checks its
@@ -36,13 +36,14 @@ from straps_tpu_torch.geometry.camera import orthographic_project
 from straps_tpu_torch.geometry.rotations import rot6d_to_rotmat
 from straps_tpu_torch.losses.multi_task import multi_task_loss
 from straps_tpu_torch.metrics.compute import HOST_CHECKED_METRICS, compute_per_frame_metrics
-from straps_tpu_torch.models.resnet import batchnorm_kernels, use_data_mesh
+from straps_tpu_torch.models.batchnorm import use_data_mesh
 from straps_tpu_torch.parallel.mesh import all_reduce_, gather_batch
 from straps_tpu_torch.render.soft_silhouette import soft_silhouette_from_wp
 from straps_tpu_torch.smpl.assets import SmplAssets
 from straps_tpu_torch.smpl.model import select_joint_sets, smpl_forward
 from straps_tpu_torch.train.state import TrainState
 from straps_tpu_torch.train.synthetic import SyntheticBatch, generate_synthetic_batch
+from straps_tpu_torch.utils.native_build import KernelGraph
 from straps_tpu_torch.utils.profiling import span
 
 StepOutput = Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
@@ -214,9 +215,8 @@ class _UpdateGraph:
         self.inputs = SyntheticBatch(*(t.clone() for t in batch))
         # Gradients made by the capture, in the graph's memory.
         state.optimizer.zero_grad(set_to_none=True)
-        self.graph = torch.cuda.CUDAGraph()
-        bn_launches = batchnorm_kernels.launches
-        with torch.cuda.graph(self.graph):
+        self.graph = KernelGraph()
+        with self.graph.capture():
             loss, task_losses, pred_dict, target_dict, pred_reposed = _forward_and_dicts(
                 state, self.inputs, assets, cfg, train=True)
             loss.backward()
@@ -225,9 +225,6 @@ class _UpdateGraph:
             self.flat = torch.cat([loss.detach().reshape(1)]
                                   + [v.detach().reshape(1) for v in task_losses.values()]
                                   + [v.reshape(-1) for v in frames.values()])
-        # Nothing ran: the captured BatchNorm launches count at each replay.
-        self.bn_launches = batchnorm_kernels.launches - bn_launches
-        batchnorm_kernels.launches = bn_launches
         self.tasks, self.frames = list(task_losses), list(frames)
         self.dicts = ({k: v.detach() for k, v in pred_dict.items()}, target_dict,
                       pred_reposed)
@@ -244,7 +241,6 @@ class _UpdateGraph:
                 p.grad = g
         state.model.train(True)
         self.graph.replay()
-        batchnorm_kernels.launches += self.bn_launches
         state.optimizer.step()
         state.step += 1
         flat = self.flat.clone()

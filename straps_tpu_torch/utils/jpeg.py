@@ -33,7 +33,6 @@ YCbCr files (libjpeg-turbo converts no colours in lossless mode).
 """
 
 import ctypes
-import functools
 
 import numpy as np
 
@@ -42,17 +41,13 @@ from straps_tpu_torch.utils.native_build import host_library
 _ERR_LEN = 512
 
 
-@functools.lru_cache(maxsize=None)
-def _decoder() -> ctypes.CDLL:
-    lib = host_library("jpeg_decode")
-    lib.sj_jpeg_decode.argtypes = [
-        ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p),
-        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-        ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int32]
-    lib.sj_jpeg_decode.restype = ctypes.c_int
-    lib.sj_free.argtypes = [ctypes.c_void_p]
-    lib.sj_free.restype = None
-    return lib
+_SIGNATURES = {
+    "sj_jpeg_decode": ([ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p),
+                        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+                        ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int32],
+                       ctypes.c_int),
+    "sj_free": ([ctypes.c_void_p], None),
+}
 
 
 def apply_exif_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
@@ -70,7 +65,7 @@ def apply_exif_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
 def decode_jpeg_bytes(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """The bytes of a JPEG file -> uint8 (H, W, 3) RGB, Exif orientation
     applied; ValueError naming `name` for what it does not read."""
-    lib = _decoder()
+    lib = host_library("jpeg_decode", _SIGNATURES)
     out = ctypes.c_void_p()
     h, w, orient = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
     err = ctypes.create_string_buffer(_ERR_LEN)

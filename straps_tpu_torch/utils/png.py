@@ -88,14 +88,9 @@ _FP1 = 100000                    # libpng's fixed-point 1.0
 _SRGB_GAMMA = 45455              # PNG_GAMMA_sRGB_INVERSE
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = host_library("png_decode")
-    lib.sp_png_unfilter.argtypes = [
-        ctypes.c_char_p, ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
-    lib.sp_png_unfilter.restype = ctypes.c_int64
-    return lib
+_SIGNATURES = {"sp_png_unfilter": (
+    [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
+     ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p], ctypes.c_int64)}
 
 
 class _Image:
@@ -200,7 +195,8 @@ def _read(data: bytes, name: str) -> _Image:
     rows = (ctypes.c_int32 * len(shapes))(*[ph for ph, _ in shapes])
     nbytes = (ctypes.c_int64 * len(shapes))(*rowbytes)
     out = np.empty(need - sum(ph for ph, _ in shapes), np.uint8)
-    bad = _lib().sp_png_unfilter(raw, rows, nbytes, len(shapes), bpp, out.ctypes.data)
+    lib = host_library("png_decode", _SIGNATURES)
+    bad = lib.sp_png_unfilter(raw, rows, nbytes, len(shapes), bpp, out.ctypes.data)
     if bad:
         raise ValueError(f"{name}: unknown PNG row filter in row {bad}")
     samples = np.empty((h, w, channels), np.uint16 if depth == 16 else np.uint8)

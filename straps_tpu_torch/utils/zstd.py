@@ -29,22 +29,15 @@ _COUNTS: Dict[str, int] = {}
 _COUNTS_LOCK = threading.Lock()
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = host_library("zstd_decode")
-    lib.sz_decompress.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_size_t,
-                                  ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t]
-    lib.sz_decompress.restype = ctypes.c_void_p
-    lib.sz_data.argtypes = [ctypes.c_void_p]
-    lib.sz_data.restype = ctypes.c_void_p
-    lib.sz_size.argtypes = [ctypes.c_void_p]
-    lib.sz_size.restype = ctypes.c_size_t
-    lib.sz_free.argtypes = [ctypes.c_void_p]
-    lib.sz_free.restype = None
-    lib.sz_crc32c.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
-    lib.sz_crc32c.restype = ctypes.c_uint32
-    lib.sz_count_names.restype = ctypes.c_char_p
-    return lib
+_SIGNATURES = {
+    "sz_decompress": ([ctypes.c_void_p, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_void_p,
+                       ctypes.c_char_p, ctypes.c_size_t], ctypes.c_void_p),
+    "sz_data": ([ctypes.c_void_p], ctypes.c_void_p),
+    "sz_size": ([ctypes.c_void_p], ctypes.c_size_t),
+    "sz_free": ([ctypes.c_void_p], None),
+    "sz_crc32c": ([ctypes.c_void_p, ctypes.c_size_t], ctypes.c_uint32),
+    "sz_count_names": ([], ctypes.c_char_p),
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,7 +45,7 @@ def count_names():
     """What `mode_counts` counts: frames, skippable frames, each block
     type, each literals type, Huffman streams of 1 and 4, each sequence
     table mode, verified checksums."""
-    return tuple(_lib().sz_count_names().decode().split(","))
+    return tuple(host_library("zstd_decode", _SIGNATURES).sz_count_names().decode().split(","))
 
 
 def _buffer(data) -> np.ndarray:
@@ -63,7 +56,7 @@ def decompress(data, size_hint: int = 0) -> bytes:
     """Every frame of `data` (bytes-like) decoded and joined; ValueError
     naming the fault for input that is not a whole set of frames.
     `size_hint` (the expected size, if known) saves reallocation."""
-    lib = _lib()
+    lib = host_library("zstd_decode", _SIGNATURES)
     buf = _buffer(data)
     names = count_names()
     counts = (ctypes.c_uint64 * len(names))()
@@ -108,4 +101,4 @@ def frame_raw(data) -> bytes:
 
 def crc32c(data) -> int:
     buf = _buffer(data)
-    return int(_lib().sz_crc32c(buf.ctypes.data, buf.nbytes))
+    return int(host_library("zstd_decode", _SIGNATURES).sz_crc32c(buf.ctypes.data, buf.nbytes))

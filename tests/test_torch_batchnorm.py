@@ -1,4 +1,4 @@
-"""The training-mode BatchNorm kernels' arithmetic (`models/resnet.py`'s
+"""The training-mode BatchNorm kernels' arithmetic (`models/batchnorm.py`'s
 `batchnorm_*_reference`, the plain PyTorch version of `csrc/batchnorm.cu`)
 against autograd of the plain training formula that `BatchNorm2d` keeps
 for CPU tensors, in float64 on the CPU: the output, the running
@@ -13,7 +13,7 @@ The card holds the kernels themselves to these functions
 import pytest
 import torch
 
-from straps_tpu_torch.models import resnet as R
+from straps_tpu_torch.models import batchnorm as BN
 from torch_bn import bn_input_shapes
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -34,11 +34,11 @@ def _plain(x, weight, bias):
 def _reference(x, weight, bias, dy):
     """The kernels' four stages in order: y, mean, var, dx, dweight, dbias, k."""
     count = x.numel() // x.shape[1]
-    sums = R.batchnorm_stats_reference(x)
-    stats, var = R.batchnorm_coefficients_reference(sums, count, weight, EPS)
-    y = R.batchnorm_normalize_reference(x, stats, bias)
-    back = R.batchnorm_backward_sums_reference(dy, x, stats)
-    dx = R.batchnorm_backward_dx_reference(dy, x, stats, back, count)
+    sums = BN.batchnorm_stats_reference(x)
+    stats, var = BN.batchnorm_coefficients_reference(sums, count, weight, EPS)
+    y = BN.batchnorm_normalize_reference(x, stats, bias)
+    back = BN.batchnorm_backward_sums_reference(dy, x, stats)
+    dx = BN.batchnorm_backward_dx_reference(dy, x, stats, back, count)
     return y, stats[0], var, dx, back[1] * stats[2], back[0], stats[3]
 
 
@@ -115,7 +115,7 @@ def test_running_statistics_follow_the_module():
     reference's mean and variance equals the module's CPU update (float32
     buffers, float32 inputs)."""
     x, weight, bias, _ = _inputs((4, 32, 6, 6), seed=3)
-    norm = R.BatchNorm2d(32).train()
+    norm = BN.BatchNorm2d(32).train()
     with torch.no_grad():
         norm.weight.copy_(weight.float())
         norm.bias.copy_(bias.float())
@@ -124,8 +124,8 @@ def test_running_statistics_follow_the_module():
     rm, rv = norm.running_mean.clone(), norm.running_var.clone()
     xf = x.float()
     norm(xf)
-    sums = R.batchnorm_stats_reference(xf)
-    stats, var = R.batchnorm_coefficients_reference(sums, xf.numel() // 32, norm.weight, EPS)
+    sums = BN.batchnorm_stats_reference(xf)
+    stats, var = BN.batchnorm_coefficients_reference(sums, xf.numel() // 32, norm.weight, EPS)
     want_m = rm * (1.0 - MOMENTUM) + stats[0] * MOMENTUM
     want_v = rv * (1.0 - MOMENTUM) + var * MOMENTUM
     assert torch.allclose(norm.running_mean, want_m, rtol=1e-6, atol=1e-7)
@@ -144,18 +144,18 @@ def test_grid_fills_the_card_at_every_layer(depth):
     for n, c, h, w in shapes:
         m, vec = n * h * w, 8
         assert c % vec == 0
-        lanes, tiles, slices = R.batchnorm_geometry(m, c, vec)
+        lanes, tiles, slices = BN.batchnorm_geometry(m, c, vec)
         assert lanes & (lanes - 1) == 0 and lanes <= 32
         assert tiles * lanes * vec >= c > (tiles - 1) * lanes * vec
         assert tiles * slices >= 528, (c, h, w)
-        rows = R.KERNEL_THREADS // lanes
+        rows = BN.KERNEL_THREADS // lanes
         assert m // slices >= 4 * rows
 
 
 def test_grid_of_small_and_ragged_shapes():
-    assert R.batchnorm_geometry(3 * 49, 3, 1) == (4, 1, 1)
-    assert R.batchnorm_geometry(1, 64, 8) == (8, 1, 1)
-    lanes, tiles, slices = R.batchnorm_geometry(10 ** 6, 65535, 1)
+    assert BN.batchnorm_geometry(3 * 49, 3, 1) == (4, 1, 1)
+    assert BN.batchnorm_geometry(1, 64, 8) == (8, 1, 1)
+    lanes, tiles, slices = BN.batchnorm_geometry(10 ** 6, 65535, 1)
     assert (lanes, tiles) == (32, 2048) and slices >= 1
 
 
@@ -163,11 +163,11 @@ def test_grid_of_small_and_ragged_shapes():
 def test_kernel_wrapper_refuses_before_building(case, monkeypatch):
     """The wrapper checks device, dtype and layout first: on the CPU every
     input is refused with ValueError, without asking for nvcc."""
-    monkeypatch.setattr(R.native_build, "cuda_library",
+    monkeypatch.setattr(BN.native_build, "cuda_library",
                         lambda src: pytest.fail("built the library"))
     x = torch.zeros(2, 8, 4, 4)
     x = {"cpu": x.contiguous(memory_format=torch.channels_last),
          "float16": x.half(), "float64": x.double(), "nchw_strided": x}[case]
     with pytest.raises(ValueError):
-        R.batchnorm_kernels.stats(x)
-    assert R.batchnorm_kernels.launches == 0
+        BN.batchnorm_kernels.stats(x)
+    assert BN.batchnorm_kernels.launches == 0

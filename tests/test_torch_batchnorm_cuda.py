@@ -4,7 +4,7 @@ Skipped where CUDA is absent.  On an H100:
 `python -m pytest --noconftest tests/test_torch_batchnorm_cuda.py -q`.
 
 Stage by stage, each kernel against its plain PyTorch version
-(`models/resnet.py`'s `batchnorm_*_reference`) given the kernels' own
+(`models/batchnorm.py`'s `batchnorm_*_reference`) given the kernels' own
 inputs: the normalised output, the running statistics, dx and the weight's
 and bias's gradients equal bit for bit (both round every product and sum
 on its own, and divide truly); the channel sums agree to float32's
@@ -28,7 +28,7 @@ channel; the stages also with a channel at 1000 (the variance's clamp).
 import pytest
 import torch
 
-from straps_tpu_torch.models import resnet as R
+from straps_tpu_torch.models import batchnorm as BN
 from torch_bn import bn_input_shapes, channel_bounds, within_bound
 
 pytestmark = pytest.mark.cuda
@@ -78,7 +78,7 @@ def _sum_close(got, x_terms, want, what):
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_kernels_match_their_plain_version(cuda, shape, dtype):
     x, weight, bias, dy = _inputs(shape, dtype, cuda, near_constant=True)
-    K = R.batchnorm_kernels
+    K = BN.batchnorm_kernels
     count = x.numel() // x.shape[1]
     rm = torch.rand(shape[1], device=cuda)
     rv = torch.rand(shape[1], device=cuda) + 0.5
@@ -94,27 +94,27 @@ def test_kernels_match_their_plain_version(cuda, shape, dtype):
     assert K.launches == before + 4
 
     xf = x.float()
-    _sum_close(sums[0], xf, R.batchnorm_stats_reference(x.double())[0].float(), "sum x")
-    _sum_close(sums[1], xf.square(), R.batchnorm_stats_reference(x.double())[1].float(),
+    _sum_close(sums[0], xf, BN.batchnorm_stats_reference(x.double())[0].float(), "sum x")
+    _sum_close(sums[1], xf.square(), BN.batchnorm_stats_reference(x.double())[1].float(),
                "sum x^2")
-    want, var = R.batchnorm_coefficients_reference(sums, count, weight, 1e-5)
+    want, var = BN.batchnorm_coefficients_reference(sums, count, weight, 1e-5)
     assert torch.equal(stats[0], want[0])
     assert torch.equal(stats[3] == 0, want[3] == 0)
     for row in (1, 2, 3):
         assert torch.allclose(stats[row], want[row], rtol=8e-7, atol=0), row
-    assert torch.equal(y, R.batchnorm_normalize_reference(x, stats, bias))
+    assert torch.equal(y, BN.batchnorm_normalize_reference(x, stats, bias))
     assert y.is_contiguous(memory_format=CL)
     assert torch.equal(rm, rm0 * (1.0 - 0.1) + stats[0] * 0.1)
     assert torch.equal(rv, rv0 * (1.0 - 0.1) + var * 0.1)
     assert int(tracked) == 1
 
-    want_b = R.batchnorm_backward_sums_reference(dy, x, stats)
+    want_b = BN.batchnorm_backward_sums_reference(dy, x, stats)
     _sum_close(bsums[0], dy, want_b[0], "sum dy")
     _sum_close(bsums[1], dy.float() * (xf - stats[0][:, None, None]), want_b[1],
                "sum dy (x - mean)")
     assert torch.equal(dbias, bsums[0])
     assert torch.equal(dweight, bsums[1] * stats[2])
-    assert torch.equal(dx, R.batchnorm_backward_dx_reference(dy, x, stats, bsums, count))
+    assert torch.equal(dx, BN.batchnorm_backward_dx_reference(dy, x, stats, bsums, count))
 
 
 def _module_run(norm, x, dy, plain):
@@ -126,7 +126,7 @@ def _module_run(norm, x, dy, plain):
 
 
 def _norm(weight, bias):
-    norm = R.BatchNorm2d(weight.numel()).to(weight.device).train()
+    norm = BN.BatchNorm2d(weight.numel()).to(weight.device).train()
     with torch.no_grad():
         norm.weight.copy_(weight)
         norm.bias.copy_(bias)
@@ -151,9 +151,9 @@ def _hold(got, want, dtype, x, weight):
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_function_matches_the_plain_formula_under_autograd(cuda, shape, dtype):
     x, weight, bias, dy = _inputs(shape, dtype, cuda, seed=1)
-    before = R.batchnorm_kernels.launches
+    before = BN.batchnorm_kernels.launches
     got = _module_run(_norm(weight, bias), x, dy, plain=False)
-    assert R.batchnorm_kernels.launches == before + 4
+    assert BN.batchnorm_kernels.launches == before + 4
     want = _module_run(_norm(weight, bias), x, dy, plain=True)
     _hold(got, want, dtype, x, weight)
 
@@ -163,9 +163,9 @@ def test_other_layouts_and_dtypes(cuda):
     module copies such a layout to channels-last first."""
     x, weight, bias, dy = _inputs((4, 64, 8, 8), torch.bfloat16, cuda)
     with pytest.raises(ValueError):
-        R.batchnorm_kernels.stats(x.half())
+        BN.batchnorm_kernels.stats(x.half())
     with pytest.raises(ValueError):
-        R.batchnorm_kernels.stats(x.contiguous())
+        BN.batchnorm_kernels.stats(x.contiguous())
     got = _module_run(_norm(weight, bias), x.contiguous(), dy.contiguous(), plain=False)
     want = _module_run(_norm(weight, bias), x, dy, plain=False)
     for a, b in zip(got, want):
@@ -186,7 +186,7 @@ def test_two_streams_at_once_keep_their_own_counters(cuda):
     """Statistics and backward sums launched on two side streams at once,
     each on its own input, equal bit for bit those of the same inputs on
     the default stream: a stream's launches use its own tile counters."""
-    K = R.batchnorm_kernels
+    K = BN.batchnorm_kernels
     shape = (16, 64, 128, 128)
     runs = [_inputs(shape, torch.bfloat16, cuda, seed=s) for s in (4, 5)]
     want = []
@@ -218,12 +218,12 @@ def mesh_rank(x, weight, bias, dy):
     dev = mesh.device
     norm = _norm(weight.to(dev), bias.to(dev))
     xs = shard_batch(x, mesh).to(dev).contiguous(memory_format=CL).requires_grad_(True)
-    with R.use_data_mesh(norm, mesh):
+    with BN.use_data_mesh(norm, mesh):
         y = norm(xs)
     y.backward(shard_batch(dy, mesh).to(dev).contiguous(memory_format=CL))
     return (y.detach().cpu(), xs.grad.cpu(), norm.weight.grad.cpu(), norm.bias.grad.cpu(),
             norm.running_mean.cpu(), norm.running_var.cpu(), int(norm.num_batches_tracked),
-            mesh.collectives, R.batchnorm_kernels.launches)
+            mesh.collectives, BN.batchnorm_kernels.launches)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
@@ -273,12 +273,12 @@ def test_resnet50_train_step_launches_four_a_layer_and_repeats(cuda):
         runs = []
         for _ in range(2):
             state, step = _r50_step(cuda)
-            layers = sum(isinstance(m, R.BatchNorm2d) for m in state.model.modules())
-            before = R.batchnorm_kernels.launches
+            layers = sum(isinstance(m, BN.BatchNorm2d) for m in state.model.modules())
+            before = BN.batchnorm_kernels.launches
             loss, tasks, _ = step()
             torch.cuda.synchronize()
             assert layers == 53
-            assert R.batchnorm_kernels.launches - before == 4 * layers
+            assert BN.batchnorm_kernels.launches - before == 4 * layers
             runs.append((loss.cpu(), {k: p.grad.cpu() for k, p in
                                       state.model.named_parameters()},
                          {k: b.cpu() for k, b in state.model.named_buffers()}))

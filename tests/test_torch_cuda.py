@@ -11,7 +11,8 @@ triangles across tile edges, ragged widths, near-horizontal edges, vertices
 on pixel centres, special planes, a coplanar tie across two chunks).
 One ResNet-50 train step with the silhouette task on the card against the
 CPU (`tests/torch_gates.py` replays the card's encoder selections), and
-the DeepLab DensePose head with its losses and gradients.
+the DeepLab DensePose head with its losses and gradients.  A packed
+launch captured in a `KernelGraph` counts at each replay.
 """
 
 import numpy as np
@@ -28,6 +29,7 @@ from straps_tpu_torch.render.renderer import render_rgb, render_silhouette
 from straps_tpu_torch.smpl.assets import load_synthetic_assets
 from straps_tpu_torch.smpl.model import smpl_forward_axis_angle
 from straps_tpu_torch.train.synthetic import draw_synthetic, generate_synthetic_batch
+from straps_tpu_torch.utils import native_build
 from raster_scenes import KERNEL_SCENES
 from torch_gates import count_flips, record_encoder_gates, replay_encoder_gates
 from torch_margins import _check_margins
@@ -71,6 +73,26 @@ def test_kernel_matches_plain(cuda, img_wh, cull):
     want = CR.rasterize_packed_reference(flat, bounds, attr, img_wh, img_wh)
     assert (want & 7).gt(0).float().mean() > 0.02
     assert torch.equal(got, want)
+
+
+def test_graph_counts_captured_launches_at_each_replay(cuda):
+    """A packed launch captured in a `KernelGraph` counts nothing while it
+    is captured and once at each replay, which writes the plain version's
+    keys."""
+    flat, bounds, attr = _smpl_inputs(cuda, 64)
+    CR.packed_raster_kernel(flat, bounds, attr, 64, 64)        # loads the library
+    graph = native_build.KernelGraph()
+    before = CR.packed_raster_kernel.launches
+    with graph.capture():
+        key = CR.packed_raster_kernel(flat, bounds, attr, 64, 64)
+    assert CR.packed_raster_kernel.launches == before
+    want = CR.rasterize_packed_reference(flat, bounds, attr, 64, 64)
+    for replays in (1, 2):
+        key.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert CR.packed_raster_kernel.launches == before + replays
+        assert torch.equal(key, want)
 
 
 def test_kernel_matches_plain_on_training_batch(cuda, monkeypatch):

@@ -75,7 +75,7 @@ def test_host_libraries_build_from_the_port_sources_only():
     assert native_build.local_includes(str(csrc / "jpeg_decode.cpp")) == [
         str(csrc / "jpeg_decode.cpp"), str(csrc / "jpeg_aritab.h")]
     from straps_tpu_torch.utils import zstd
-    lib = zstd._lib()
+    lib = native_build.host_library("zstd_decode", zstd._SIGNATURES)
     assert os.path.dirname(lib._name) == native_build.BUILD_DIR
     assert os.path.basename(lib._name).startswith("zstd_decode_")
 

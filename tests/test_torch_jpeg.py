@@ -32,6 +32,7 @@ import pytest
 from PIL import Image
 
 from straps_tpu_torch.utils import native_build
+from straps_tpu_torch.utils import jpeg as JPEG
 from straps_tpu_torch.utils.jpeg import decode_jpeg, decode_jpeg_bytes
 from torch_jpeg.write_codings import scene
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -305,7 +306,7 @@ def test_not_a_jpeg_raises_naming_the_file(tmp_path):
 
 
 def test_decoder_is_built_from_the_port_sources():
-    lib = native_build.host_library("jpeg_decode")
+    lib = native_build.host_library("jpeg_decode", JPEG._SIGNATURES)
     path = os.path.realpath(lib._name)
     assert os.path.dirname(path) == os.path.realpath(native_build.BUILD_DIR)
     digest = native_build.source_digest(

@@ -421,10 +421,8 @@ def test_ops_inventory_lists_only_its_names():
     assert sorted({p for ps in torch_ops.JAX_COUNTERPARTS.values() for p in ps}) == \
         sorted(torch_ops.__all__)
     code = ("import straps_tpu_torch.ops, sys\n"
-            "from straps_tpu_torch.render import cuda_raster\n"
-            "from straps_tpu_torch.data import native_io\n"
-            "assert all(k._fn is None for k in cuda_raster.KERNELS)\n"
-            "assert native_io.get_library.cache_info().currsize == 0\n"
+            "from straps_tpu_torch.utils import native_build\n"
+            "assert native_build.KERNEL_LIBRARIES and native_build._LIBRARIES == {}\n"
             "assert 'triton' not in sys.modules and 'jax' not in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=os.path.dirname(HERE))
 

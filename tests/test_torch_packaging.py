@@ -83,7 +83,7 @@ from straps_tpu_torch.utils import native_build
 from straps_tpu_torch.utils.png import decode_png
 assert os.path.dirname(straps_tpu_torch.__file__) == {str(site / "straps_tpu_torch")!r}
 np.save({str(out)!r}, decode_png({str(FIXTURE)!r}))
-print(native_build._HOST_LIBS["png_decode"]._name)
+print(native_build._LIBRARIES[os.path.join(native_build.CSRC_DIR, "png_decode.cpp")]._name)
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=_env(),
                           capture_output=True, text=True)

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 from straps_tpu_torch.utils import native_build
+from straps_tpu_torch.utils import png as PNG
 from straps_tpu_torch.utils.png import (decode_png, decode_png_bytes, decode_png_grey,
                                         decode_png_grey_bytes)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -197,7 +198,7 @@ def test_large_palette_adam7_image(tmp_path):
 
 
 def test_decoder_is_built_from_the_port_sources():
-    lib = native_build.host_library("png_decode")
+    lib = native_build.host_library("png_decode", PNG._SIGNATURES)
     path = os.path.realpath(lib._name)
     assert os.path.dirname(path) == os.path.realpath(native_build.BUILD_DIR)
     digest = native_build.source_digest(

@@ -11,6 +11,8 @@ span search (`csrc/raster_span.cuh`) is held to the plain versions' dense
 coverage bit for bit.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from straps_tpu.geometry import rodrigues
 from straps_tpu_torch.render import cuda_raster as CR
 from straps_tpu_torch.render import raster as TR
 from straps_tpu_torch.render import renderer as TRR
+from straps_tpu_torch.utils import native_build
 from raster_scenes import KERNEL_SCENES
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -203,13 +206,25 @@ def test_library_key_covers_included_headers(tmp_path):
     (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
     (tmp_path / "b.cuh").write_text("// b\n")
     src = str(tmp_path / "k.cu")
-    key = CR.source_digest(src)
-    assert CR.source_digest(src) == key
+    key = native_build.source_digest(src, native_build.NVCC_FLAGS)
+    assert native_build.source_digest(src, native_build.NVCC_FLAGS) == key
     (tmp_path / "b.cuh").write_text("// b, changed\n")
-    assert CR.source_digest(src) != key
-    for kernel in CR.KERNELS:
-        assert [p.rsplit("/", 1)[-1] for p in CR._local_includes(kernel.source)] == \
+    assert native_build.source_digest(src, native_build.NVCC_FLAGS) != key
+    for kernel in (CR.packed_raster_kernel, CR.faceid_raster_kernel):
+        assert [p.rsplit("/", 1)[-1] for p in native_build.local_includes(kernel.source)] == \
             [f"{kernel.name}.cu", "raster_span.cuh"]
+
+
+def test_registry_holds_one_library_per_kernel_source():
+    """`native_build.KERNEL_LIBRARIES`, which `chip_smoke.py` builds and
+    resets, holds one library for each `.cu` of `csrc/` once the port's
+    kernel modules are imported; none is loaded on the CPU."""
+    from straps_tpu_torch.models import batchnorm  # noqa: F401  (its kernels)
+    sources = sorted(k.source for k in native_build.KERNEL_LIBRARIES)
+    csrc = native_build.CSRC_DIR
+    assert sources == sorted(os.path.join(csrc, f) for f in os.listdir(csrc)
+                             if f.endswith(".cu"))
+    assert not set(sources) & set(native_build._LIBRARIES)
 
 
 def test_faceid_triangles_vs_pallas_interpret():

@@ -202,10 +202,8 @@ for sub in {SUBPACKAGES!r}:
     m = importlib.import_module("straps_tpu_torch." + sub)
     for name in m.__all__:
         getattr(m, name)
-from straps_tpu_torch.render import cuda_raster
 from straps_tpu_torch.utils import native_build
-assert all(k._fn is None for k in cuda_raster.KERNELS)
-assert native_build._HOST_LIBS == {{}}
+assert native_build.KERNEL_LIBRARIES and native_build._LIBRARIES == {{}}
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
 assert not bad, bad
 assert not os.path.exists(native_build.BUILD_DIR), os.listdir(native_build.BUILD_DIR)

@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from straps_tpu_torch.config import TrainConfig
-from straps_tpu_torch.models import resnet as R
+from straps_tpu_torch.models import batchnorm as BN
 from straps_tpu_torch.train import step as S
 from straps_tpu_torch.train.loop import build_training
 from straps_tpu_torch.train.synthetic import draw_synthetic, generate_synthetic_batch
@@ -109,10 +109,10 @@ def test_graph_updates_equal_eager_updates_bit_for_bit(cuda, deterministic_cudnn
     _, assets, graph_state, _, _ = build_training(cfg, device=cuda)
     _, _, eager_state, _, _ = build_training(cfg, assets, device=cuda)
     batches = _batches(cfg, assets, cuda, [B] * 5 + [OTHER_B] * 2 + [B])
-    norms = sum(isinstance(m, R.BatchNorm2d) for m in graph_state.model.modules())
+    norms = sum(isinstance(m, BN.BatchNorm2d) for m in graph_state.model.modules())
 
     S.reset_update_graph_stats()
-    launches = R.batchnorm_kernels.launches
+    launches = BN.batchnorm_kernels.launches
     graphed, sync_warnings = [], []
     for i, batch in enumerate(batches):
         with warnings.catch_warnings(record=True) as caught:
@@ -126,7 +126,7 @@ def test_graph_updates_equal_eager_updates_bit_for_bit(cuda, deterministic_cudnn
         sync_warnings += [w for w in caught if "called a synchronizing" in str(w.message)]
         graphed.append(_host(*out))
     torch.cuda.synchronize()
-    assert R.batchnorm_kernels.launches - launches == 4 * norms * len(batches)
+    assert BN.batchnorm_kernels.launches - launches == 4 * norms * len(batches)
     assert S.UPDATE_GRAPH_STATS == {"captures": 2, "replays": 4,
                                     "eager": {"cpu": 0, "mesh": 0, "first_of_shape": 2}}
     assert len(graph_state.update_graphs) == 2
