@@ -254,6 +254,7 @@ Exits non-zero without a card, and outside a checkout of the repository.
 
 import contextlib
 import copy
+import dataclasses
 import hashlib
 import io
 import json
@@ -646,11 +647,14 @@ def training_kernel_inputs(assets, cfg, corpus_path):
     """The packed kernel's inputs (flat planes, int32 bounds, attributes)
     of the first train step of epoch 0 on the corpus at `corpus_path`: the
     arguments `generate_synthetic_batch` hands the rasteriser on that
-    step's bodies and draws, recorded on their way in."""
+    step's bodies and draws, recorded on their way in.  A copy of `assets`
+    with no graph of its own makes the call its key's first, which runs
+    eagerly: a replayed batch calls no Python rasteriser."""
     from straps_tpu_torch.render import cuda_raster as CR
     from straps_tpu_torch.render import renderer
     from straps_tpu_torch.train.synthetic import draw_synthetic, generate_synthetic_batch
 
+    assets = dataclasses.replace(assets)
     dev = assets.device
     pose, shape, generator = first_train_batch(cfg, corpus_path, dev)
     draws = draw_synthetic(generator, cfg.batch_size, assets.num_verts, cfg, dev)

@@ -13,6 +13,7 @@ import torch
 from straps_tpu_torch import constants as C
 from straps_tpu_torch.augment.draws import uniform
 from straps_tpu_torch.config import ProxyAugmentConfig
+from straps_tpu_torch.utils.device import device_constant
 
 
 class ProxyDraws(NamedTuple):
@@ -56,8 +57,8 @@ def random_joints2d_deviation(joints2d: torch.Tensor, noise: torch.Tensor,
                               hip_noise: torch.Tensor) -> torch.Tensor:
     """(B, 17, 2) COCO joints plus `noise`, the hips plus `hip_noise`."""
     J = joints2d.shape[1]
-    is_hip = torch.zeros(J, dtype=torch.bool, device=joints2d.device)
-    is_hip[C.COCO_HIP_JOINTS] = True
+    is_hip = device_constant(tuple(j in C.COCO_HIP_JOINTS for j in range(J)), torch.bool,
+                             joints2d.device)
     return joints2d + torch.where(is_hip[None, :, None], hip_noise, noise)
 
 

@@ -11,10 +11,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from straps_tpu_torch.utils.device import device_constant
+
 
 def _f32(value, like: torch.Tensor) -> torch.Tensor:
     """A float32 tensor of `value` on `like`'s device, so that arithmetic
-    with it rounds in float32 as the reference does."""
+    with it rounds in float32 as the reference does; a Python number's is
+    made once a device (`device_constant`)."""
+    if isinstance(value, (int, float)):
+        return device_constant(value, torch.float32, like.device)
     return torch.as_tensor(value, dtype=torch.float32, device=like.device)
 
 

@@ -23,6 +23,7 @@ through the plain version.
 """
 
 import ctypes
+import weakref
 from typing import Tuple
 
 import numpy as np
@@ -213,15 +214,37 @@ def flatten_planes(planes: torch.Tensor) -> torch.Tensor:
     return planes.reshape(planes.shape[0], planes.shape[1], 12).contiguous()
 
 
+# Attribute tensors found in range, by (id, data pointer, version); an
+# entry lives as long as its tensor.
+_ATTR_IN_RANGE: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+
+
+def _check_attr_range(face_attr: torch.Tensor) -> None:
+    """Raise ValueError on an attribute outside [0, 8): the kernel ORs it
+    into the key's low bits, where a wider value would corrupt the depth.
+    The check reads the values on the host, so it runs once for each
+    tensor, storage and version: `_version` advances at every in-place
+    write through the tensor or a view of it, not at a write that bypasses
+    autograd's counter (through `.data`, DLPack or another library), which
+    this check does not see.  An inference tensor, which keeps no version,
+    is checked at every call."""
+    key = None if face_attr.is_inference() else (id(face_attr), face_attr.data_ptr(),
+                                                 face_attr._version)
+    if key is not None and _ATTR_IN_RANGE.get(key) is face_attr:
+        return
+    lo, hi = torch.stack(torch.aminmax(face_attr)).tolist() if face_attr.numel() else (0, 0)
+    if lo < 0 or hi > _ATTR_MASK:
+        raise ValueError(f"face_attr must lie in [0, {_ATTR_MASK}], got [{lo}, {hi}]")
+    if key is not None:
+        _ATTR_IN_RANGE[key] = face_attr
+
+
 def pack_planes(planes: torch.Tensor, face_attr: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, F, 4, 3) planes + (F,) attributes -> the packed kernel's inputs:
     `flatten_planes(planes)` and (Fp,) int32 attributes (0 on padding).
-    Raises ValueError on an attribute outside [0, 8): the kernel ORs it
-    into the key's low bits, where a wider value would corrupt the depth."""
-    lo, hi = torch.stack(torch.aminmax(face_attr)).tolist() if face_attr.numel() else (0, 0)
-    if lo < 0 or hi > _ATTR_MASK:
-        raise ValueError(f"face_attr must lie in [0, {_ATTR_MASK}], got [{lo}, {hi}]")
+    Raises ValueError on an attribute outside [0, 8) (`_check_attr_range`)."""
+    _check_attr_range(face_attr)
     flat = flatten_planes(planes)
     attr = torch.zeros((flat.shape[1],), dtype=torch.int32, device=flat.device)
     attr[:face_attr.shape[0]] = face_attr.to(torch.int32)

@@ -14,6 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from straps_tpu_torch.utils.device import device_constant
+
 
 def project_to_screen(verts: torch.Tensor, cam_t: torch.Tensor,
                       cam_K: torch.Tensor,
@@ -135,7 +137,7 @@ def face_chunk_row_bounds(screen_xy: torch.Tensor, faces: torch.Tensor,
     vy = screen_xy[:, faces, 1]                  # (B, F, 3)
     fymin = vy.amin(dim=-1)
     fymax = vy.amax(dim=-1)
-    inf = torch.tensor(float("inf"), dtype=fymin.dtype, device=fymin.device)
+    inf = device_constant(float("inf"), fymin.dtype, fymin.device)
     fymin = torch.where(torch.isnan(fymin), inf, fymin)
     fymax = torch.where(torch.isnan(fymax), -inf, fymax)
     if dead_mask is not None:

@@ -39,6 +39,16 @@ def render_part_seg(verts: torch.Tensor, cam_t: torch.Tensor,
       parts (B, img_wh, img_wh) int32 (0 = background) and depth
       (B, img_wh, img_wh) f32 (3.4e38 where background).
     """
+    planes, bounds = part_seg_planes(verts, cam_t, cam_K, faces, img_wh, cam_R,
+                                     cull_backfaces)
+    return rasterize_packed(planes, bounds, face_parts, img_wh, img_wh)
+
+
+def part_seg_planes(verts: torch.Tensor, cam_t: torch.Tensor, cam_K: torch.Tensor,
+                    faces: torch.Tensor, img_wh: int, cam_R: Optional[torch.Tensor] = None,
+                    cull_backfaces: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plane-form faces (B, F, 4, 3) and chunk row bounds that
+    `render_part_seg` rasterises, with its arguments."""
     screen, z = project_to_screen(verts, cam_t, cam_K, cam_R)
     planes = prepare_face_planes(screen, z, faces)
     dead = None
@@ -47,7 +57,7 @@ def render_part_seg(verts: torch.Tensor, cam_t: torch.Tensor,
         planes = kill_faces(planes, dead)
     bounds = face_chunk_row_bounds(screen, faces, FACE_CHUNK, img_wh,
                                    dead_mask=dead)
-    return rasterize_packed(planes, bounds, face_parts, img_wh, img_wh)
+    return planes, bounds
 
 
 def render_silhouette(verts, cam_t, cam_K, faces, img_wh, cam_R=None,

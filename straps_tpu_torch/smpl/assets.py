@@ -10,7 +10,7 @@ from `vertex_texture.npy` + `cube_parts.npy` when present.
 import dataclasses
 import os
 import pickle
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -45,6 +45,9 @@ class SmplAssets:
     mean_pose_6d: tuple             # (144,) IEF initial pose
     mean_shape: tuple               # (10,) IEF initial shape
     is_synthetic: bool = False
+    # The synthetic batch's CUDA graphs by key (`train/synthetic.py`), which
+    # read these tensors: freed with them, and not carried over by `to`.
+    synth_graphs: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def num_verts(self) -> int:

@@ -7,7 +7,6 @@ Float32 throughout; on CUDA the entry points switch TF32 off
 `precision="highest"`.
 """
 
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -15,19 +14,18 @@ import torch
 from straps_tpu_torch import constants as C
 from straps_tpu_torch.geometry.rotations import rodrigues
 from straps_tpu_torch.smpl.assets import SmplAssets
+from straps_tpu_torch.utils.device import device_constant
 
 _EXTRA_IDS = tuple(C.SMPL_VERTEX_IDS[k] for k in C.SMPL_EXTRA_KEYPOINT_ORDER)
 
 
-@functools.lru_cache(maxsize=None)
 def device_index(ids: tuple, device: torch.device) -> torch.Tensor:
-    """The int64 index tensor of `ids` on `device`, made once: indexing
-    with it gathers what indexing with the list gathers, without the
-    host-to-device copy (and its wait) that a list costs on every call,
-    so that a CUDA graph can capture the gather.  Made outside inference
-    mode, as autograd saves it for a later backward pass."""
-    with torch.inference_mode(False):
-        return torch.tensor(ids, dtype=torch.int64, device=device)
+    """The int64 index tensor of `ids` on `device`, made once
+    (`utils/device.py::device_constant`): indexing with it gathers what
+    indexing with the list gathers, without the host-to-device copy (and
+    its wait) that a list costs on every call, so that a CUDA graph can
+    capture the gather."""
+    return device_constant(ids, torch.int64, device)
 
 
 class SmplOutput(NamedTuple):

@@ -43,7 +43,7 @@ from straps_tpu_torch.smpl.assets import SmplAssets
 from straps_tpu_torch.smpl.model import select_joint_sets, smpl_forward
 from straps_tpu_torch.train.state import TrainState
 from straps_tpu_torch.train.synthetic import SyntheticBatch, generate_synthetic_batch
-from straps_tpu_torch.utils.native_build import KernelGraph
+from straps_tpu_torch.utils.native_build import KernelGraph, KeyedGraphs
 from straps_tpu_torch.utils.profiling import span
 
 StepOutput = Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
@@ -51,15 +51,12 @@ StepOutput = Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor
 # The updates of `train_on_batch` since the last reset, each counted once:
 # captured (and replayed), replayed, or eager by reason (a data mesh, on
 # the card or not; a state off the card; the first update of its key).
-UPDATE_GRAPH_STATS = {"captures": 0, "replays": 0,
-                      "eager": {"cpu": 0, "mesh": 0, "first_of_shape": 0}}
+UPDATE_GRAPH_STATS = KeyedGraphs("first_of_shape", "cpu", "mesh")
 
 
 def reset_update_graph_stats() -> None:
     """Zero every count of `UPDATE_GRAPH_STATS`."""
-    UPDATE_GRAPH_STATS["captures"] = UPDATE_GRAPH_STATS["replays"] = 0
-    for k in UPDATE_GRAPH_STATS["eager"]:
-        UPDATE_GRAPH_STATS["eager"][k] = 0
+    UPDATE_GRAPH_STATS.reset()
 
 
 def silhouette_target(proxy: torch.Tensor, wh: int) -> torch.Tensor:
@@ -145,25 +142,16 @@ def train_on_batch(state: TrainState, batch: SyntheticBatch, assets: SmplAssets,
     the first runs eagerly, as every update off the card or over a mesh
     does.  The arithmetic is the eager update's either way."""
     with span("straps.train.update"):
+        def eager():
+            return _eager_update(state, batch, assets, cfg)
         if state.mesh is not None:
-            reason = "mesh"
-        elif not next(state.model.parameters()).is_cuda:
-            reason = "cpu"
-        else:
-            key = _graph_key(state, batch, cfg)
-            graph = state.update_graphs.get(key)
-            if graph is None:
-                state.update_graphs[key] = _FIRST_SEEN
-                reason = "first_of_shape"
-            else:
-                if graph is _FIRST_SEEN:
-                    graph = state.update_graphs[key] = _UpdateGraph(state, batch, assets, cfg)
-                    UPDATE_GRAPH_STATS["captures"] += 1
-                else:
-                    UPDATE_GRAPH_STATS["replays"] += 1
-                return graph.step(state, batch, cfg)
-        UPDATE_GRAPH_STATS["eager"][reason] += 1
-        return _eager_update(state, batch, assets, cfg)
+            return UPDATE_GRAPH_STATS.run_eager("mesh", eager)
+        if not next(state.model.parameters()).is_cuda:
+            return UPDATE_GRAPH_STATS.run_eager("cpu", eager)
+        return UPDATE_GRAPH_STATS.call(
+            state.update_graphs, _graph_key(state, batch, cfg),
+            capture=lambda: _UpdateGraph(state, batch, assets, cfg),
+            replay=lambda graph: graph.step(state, batch, cfg), eager=eager)
 
 
 def _eager_update(state: TrainState, batch: SyntheticBatch, assets: SmplAssets,
@@ -188,10 +176,6 @@ def _eager_update(state: TrainState, batch: SyntheticBatch, assets: SmplAssets,
         if mesh is not None:
             per_frame = gather_batch(per_frame, mesh)
     return loss.detach(), {k: v.detach() for k, v in task_losses.items()}, per_frame
-
-
-# A key whose first update ran eagerly and whose second is captured.
-_FIRST_SEEN = object()
 
 
 def _graph_key(state: TrainState, batch: SyntheticBatch, cfg: TrainConfig) -> tuple:

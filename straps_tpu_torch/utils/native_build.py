@@ -7,8 +7,9 @@ its directory that it includes (directly or through another) and of the
 compiler flags, so an edited source is rebuilt and an unchanged one is
 built once.  The CUDA kernels build with nvcc and launch through a
 `CudaKernels` each (`KERNEL_LIBRARIES`: the rasterisers, BatchNorm),
-counted, a `KernelGraph`'s replays included; the host C++ builds with
-`g++`, or `$CXX`, and loads through `host_library`.
+counted, a `KernelGraph`'s replays included; `KeyedGraphs` keeps one
+graph a key and counts its calls.  The host C++ builds with `g++`, or
+`$CXX`, and loads through `host_library`.
 """
 
 import contextlib
@@ -20,7 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -202,3 +203,47 @@ class KernelGraph:
         self.graph.replay()
         for lib, n in self.counts.items():
             lib.launches += n
+
+
+# A key whose first call ran eagerly and whose second is captured.
+_FIRST_SEEN = object()
+
+
+class KeyedGraphs(dict):
+    """The counts of a function that keeps what it captured (one or more
+    CUDA graphs) a key: its calls since the last `reset()`, each counted
+    once, as captured (and replayed), replayed, or eager by reason
+    (`{"captures": n, "replays": n, "eager": {reason: n}}`).  `call` runs a
+    key's first call eagerly (reason `first`), captures its second and
+    replays every later one."""
+
+    def __init__(self, first: str, *reasons: str):
+        super().__init__(captures=0, replays=0, eager={r: 0 for r in (*reasons, first)})
+        self.first = first
+
+    def reset(self) -> None:
+        """Zero every count."""
+        self["captures"] = self["replays"] = 0
+        for k in self["eager"]:
+            self["eager"][k] = 0
+
+    def run_eager(self, reason: str, eager: Callable[[], Any]) -> Any:
+        """`eager()`, counted under `reason`."""
+        self["eager"][reason] += 1
+        return eager()
+
+    def call(self, graphs: dict, key, capture: Callable[[], Any],
+             replay: Callable[[Any], Any], eager: Callable[[], Any]) -> Any:
+        """The call of `key` in `graphs` (the caller's map of key to
+        graph): `eager()` if it is the key's first, else `replay(graph)`,
+        the graph made by `capture()` at the key's second call."""
+        graph = graphs.get(key)
+        if graph is None:
+            graphs[key] = _FIRST_SEEN
+            return self.run_eager(self.first, eager)
+        if graph is _FIRST_SEEN:
+            graph = graphs[key] = capture()
+            self["captures"] += 1
+        else:
+            self["replays"] += 1
+        return replay(graph)

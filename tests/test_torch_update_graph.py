@@ -20,6 +20,7 @@ from straps_tpu_torch.smpl.assets import load_synthetic_assets
 from straps_tpu_torch.train import step as S
 from straps_tpu_torch.train.loop import build_training
 from straps_tpu_torch.train.synthetic import draw_synthetic, generate_synthetic_batch
+from straps_tpu_torch.utils import device as D
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 IMG, B = 64, 4
@@ -129,7 +130,7 @@ def test_smpl_index_tensors_are_made_once_and_gather_as_the_lists(tassets):
 def test_smpl_index_tensors_made_in_inference_mode_serve_training(tassets):
     """An index first made under `torch.inference_mode` (predict) is a
     normal tensor: a later training forward saves it for backward."""
-    M.device_index.cache_clear()
+    D._constant.cache_clear()
     with torch.inference_mode():
         M.select_joint_sets(M.smpl_forward(tassets, torch.zeros(1, 10),
                                            M.rodrigues(torch.zeros(1, 23, 3)),

@@ -73,7 +73,9 @@ def _batches(cfg, assets, dev, sizes, seed=3):
         pose = (torch.randn(n, 72, generator=g) * 0.2).to(dev)
         shape = (torch.randn(n, 10, generator=g) * 0.5).to(dev)
         draws = draw_synthetic(draws_gen, n, assets.num_verts, cfg, dev)
-        out.append(generate_synthetic_batch(draws, pose, shape, assets, cfg, augment=True))
+        batch = generate_synthetic_batch(draws, pose, shape, assets, cfg, augment=True)
+        # A replayed batch is the graph's own tensors, rewritten by its next replay.
+        out.append(type(batch)(*(t.clone() for t in batch)))
     return out
 
 
